@@ -5,10 +5,9 @@ Behavior spec: the reference convasr datasets.py — AudioTextDataset datasets.p
 speaker alignment, example ids, state_dict broadcast), collate_fn
 datasets.py:305-332 (xlen is the valid FRACTION of the padded time dim).
 
-TPU-specific behavior: collate pads the time dim to `time_padding_multiple`
-(reference flag --batch-time-padding-multiple, train.py:1042) and optionally
-to a fixed per-bucket length (`pad_to_bucket`), so XLA sees a small closed set
-of shapes and does not recompile per batch.
+Collate pads the time dim to `time_padding_multiple` (reference flag
+--batch-time-padding-multiple, train.py:1042), which keeps the set of batch
+shapes small, as the JAX package does for XLA.
 
 Storage is numpy (strings in a packed `StringArray`) so a fork to dataloader
 workers shares pages instead of pickling python object graphs — the same
@@ -41,6 +40,18 @@ class StringArray:
 
     def __len__(self):
         return len(self.offsets) - 1
+
+    def tolist(self):
+        return [self[i] for i in range(len(self))]
+
+    def state_dict(self):
+        return dict(encoding=self.encoding, offsets=self.offsets, buffer=self.buffer)
+
+    @staticmethod
+    def from_state_dict(d):
+        out = StringArray([], d['encoding'])
+        out.offsets, out.buffer = d['offsets'], d['buffer']
+        return out
 
 
 class AudioTextDataset:
@@ -156,6 +167,27 @@ class AudioTextDataset:
         self.transcript_cumlen = np.cumsum(np.asarray(transcript_lens, dtype=np.int64)) \
             if transcript_lens else np.zeros(0, np.int64)
         self.meta = {} if pop_meta else {t['example_id']: t for t in grouped_segments}
+
+    # --- persistence for rank-0-builds-then-broadcast (spec: train.py:588-636) ---
+
+    def state_dict(self) -> dict:
+        return dict(
+            bucket=self.bucket, audio_path=self.audio_path.state_dict(),
+            ref=self.ref.state_dict(), begin=self.begin, end=self.end,
+            channel=self.channel, speaker=self.speaker,
+            example_id=self.example_id.state_dict(), meta=self.meta,
+            speaker_len=self.speaker_len, transcript_cumlen=self.transcript_cumlen)
+
+    def load_state_dict(self, state_dict: dict):
+        self.bucket = state_dict['bucket']
+        self.audio_path = StringArray.from_state_dict(state_dict['audio_path'])
+        self.ref = StringArray.from_state_dict(state_dict['ref'])
+        self.begin, self.end = state_dict['begin'], state_dict['end']
+        self.channel, self.speaker = state_dict['channel'], state_dict['speaker']
+        self.example_id = StringArray.from_state_dict(state_dict['example_id'])
+        self.meta = state_dict['meta']
+        self.speaker_len = state_dict['speaker_len']
+        self.transcript_cumlen = state_dict['transcript_cumlen']
 
     def pop_meta(self):
         meta, self.meta = self.meta, {}
@@ -277,3 +309,11 @@ class AudioTextDataset:
             and (len(batch) == 0 or float(xlen.max(initial=0.0)) <= 1.0), xlen
         return meta, s, x, xlen, y, ylen
 
+
+def frame_count_bucket_fn(window_stride: float, time_padding_multiple: int):
+    """Quantized padded-frame-count bucketing (spec: train.py:597-601)."""
+    def bucket(transcript):
+        return int(math.ceil(
+            ((transcript[-1]['end'] - transcript[0]['begin']) / window_stride + 1)
+            / time_padding_multiple))
+    return bucket

@@ -1,9 +1,13 @@
-"""Edit-distance metrics CER / WER (counterpart of convasr_tpu/metrics/wer.py;
-the CLI needs these two, the rest of that module comes later).
+"""Edit-distance metrics CER / WER and helpers (a copy of
+convasr_tpu/metrics/wer.py).
 
 Behavior spec: the reference convasr metrics.py (cer metrics.py:409-411, wer
-metrics.py:414-421, pure-python fallback metrics.py:424-444).
+metrics.py:414-421, pure-python fallback metrics.py:424-444, nanmean
+metrics.py:247-253, quantiles metrics.py:256-258).
 """
+import math
+import typing
+
 try:
     import Levenshtein as _lev
 
@@ -44,3 +48,28 @@ def wer(*, hyp: str, ref: str) -> float:
     return edit_distance(''.join(chr(vocab[w]) for w in hyp.split()),
                          ''.join(chr(vocab[w]) for w in ref.split())) / ref_len
 
+
+def extract_metric_value(analysis_result: dict, key: str, sep: str = '.',
+                         missing: typing.Optional[float] = None) -> typing.Optional[float]:
+    keys = key.split(sep)
+    assert len(keys) <= 2
+    value = analysis_result
+    for k in keys:
+        if not isinstance(value, dict):
+            return missing
+        value = value.get(k, missing)
+    return value
+
+
+def nanmean(list_of_dicts: typing.List[dict], key: str, sep: str = '.', missing: float = -1.0) -> float:
+    vals = [v for d in list_of_dicts
+            for v in [extract_metric_value(d, key, sep)]
+            if v is not None and isinstance(v, (int, float)) and math.isfinite(v)]
+    return sum(vals) / len(vals) if vals else missing
+
+
+def quantiles(vals) -> dict:
+    vals = sorted(vals)
+    if not vals:
+        return {}
+    return {k: '{:.2f}'.format(float(vals[int(len(vals) * k / 100)])) for k in range(0, 100, 10)}

@@ -8,6 +8,12 @@ the model's boundary as in the JAX package; inside the backbone they are
 (B, C, T), the layout of torch's Conv1d. Parameters live in float32; convs
 compute in `dtype` (bfloat16 by default in the CLI), batch norm and instance
 norm in float32, log_softmax in float32, as the JAX dtypes do.
+
+In training mode (`model.train()`) batch norm normalises with the batch's
+statistics and updates its running statistics as flax does, dropout is on,
+and the frontend dithers. The random numbers of dropout and dither come from
+the `torch.Generator` passed to `forward`, so a run can be repeated and
+resumed exactly; they cannot equal the JAX package's bits.
 """
 import typing
 
@@ -51,6 +57,38 @@ def _apply_temporal_mask(x, lengths_fraction):
         return x
     lengths = compute_output_lengths(x.shape[-1], lengths_fraction)
     return x * temporal_mask(x.shape[-1], lengths)[:, None, :].to(x.dtype)
+
+
+def _dropout(x, rate: float, generator: typing.Optional[torch.Generator]):
+    """flax's Dropout: keep with probability 1 - rate, scale kept values by
+    1 / (1 - rate); the mask comes from `generator` when one is given."""
+    if generator is None:
+        return F.dropout(x, rate, training=True)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d whose running variance follows flax's `nn.BatchNorm`: the
+    update uses the biased batch variance, where torch's uses the unbiased
+    one (the two differ by n/(n-1) after a step). Normalisation, eval mode
+    and the running mean are torch's own."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # torch's kernel updates copies (autograd keeps them for the backward)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.copy_(mean)
+            # torch added momentum * var * n/(n-1); take back the n/(n-1)
+            self.running_var.copy_(keep * self.running_var
+                                   + (var - keep * self.running_var) * ((n - 1) / n))
+        return y
 
 
 def _conv(conv: nn.Conv1d, x, dtype):
@@ -100,22 +138,23 @@ class ConvBn(nn.Module):
         self.repeat, self.dtype = repeat, dtype
         self.num_channels_residual = tuple(num_channels_residual)
         self.temporal_mask, self.nonlinearity = temporal_mask, nonlinearity
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        self.dropout = dropout
         for i in range(repeat):
             self.add_module(f'conv{i}', ConvSamePadding(
                 in_channels if i == 0 else out_channels, out_channels, kernel_size,
                 stride=stride, dilation=dilation, groups=groups, separable=separable,
                 use_bias=False, dtype=dtype))
-            self.add_module(f'bn{i}', nn.BatchNorm1d(out_channels, eps=1e-5,
-                                                     momentum=batch_norm_momentum))
+            self.add_module(f'bn{i}', BatchNorm(out_channels, eps=1e-5,
+                                                momentum=batch_norm_momentum))
         for j, c in enumerate(self.num_channels_residual):
             if c is not None:
                 self.add_module(f'conv_residual{j}', nn.Conv1d(c, out_channels, 1, bias=True))
-                self.add_module(f'bn_residual{j}', nn.BatchNorm1d(
+                self.add_module(f'bn_residual{j}', BatchNorm(
                     out_channels, eps=1e-5, momentum=batch_norm_momentum))
 
-    def forward(self, x, lengths_fraction=None, residual: typing.Sequence = ()):
-        """x and residuals: (B, C, T)."""
+    def forward(self, x, lengths_fraction=None, residual: typing.Sequence = (),
+                generator: typing.Optional[torch.Generator] = None):
+        """x and residuals: (B, C, T); generator: the dropout masks' source."""
         assert len(residual) == len(self.num_channels_residual)
         for i in range(self.repeat):
             x = getattr(self, f'conv{i}')(x)
@@ -128,8 +167,8 @@ class ConvBn(nn.Module):
                         r = _conv(getattr(self, f'conv_residual{j}'), r, self.dtype)
                         x = x + getattr(self, f'bn_residual{j}')(r.to(torch.float32))
             x = apply_nonlinearity(x, self.nonlinearity)
-            if self.dropout is not None:
-                x = self.dropout(x)
+            if self.dropout > 0 and self.training:
+                x = _dropout(x, self.dropout, generator)
             if self.temporal_mask:
                 x = _apply_temporal_mask(x, lengths_fraction)
         return x
@@ -147,11 +186,11 @@ class Decoder(nn.Module):
             self.bpe_conv0 = ConvBn(in_channels, in_channels, 15, dtype=dtype)
             self.bpe_conv1 = ConvBn(in_channels, num_classes[1], 15, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         y0 = _conv(self.head0, x, self.dtype)
         if self.head_type is None:
             return (y0,)
-        return (y0, self.bpe_conv1(self.bpe_conv0(x)))
+        return (y0, self.bpe_conv1(self.bpe_conv0(x, generator=generator), generator=generator))
 
 
 class JasperNet(nn.Module):
@@ -159,7 +198,8 @@ class JasperNet(nn.Module):
 
     forward(signal_or_features, xlen) -> dict(logits=[...], log_probs=[...],
     olen=[...]), each (B, T', C); `xlen` is the valid-length FRACTION of the
-    padded time dim. Runs in eval mode for inference (`model.eval()`).
+    padded time dim. Runs in eval mode for inference (`model.eval()`) and in
+    training mode for training, where `generator` drives dropout and dither.
     """
 
     def __init__(self, num_input_features: int, num_classes: typing.Tuple[int, ...],
@@ -254,16 +294,17 @@ class JasperNet(nn.Module):
                          residual_channels=()))
         return plan
 
-    def forward(self, x, xlen=None):
+    def forward(self, x, xlen=None, generator: typing.Optional[torch.Generator] = None):
         num_epilogue = 2
         check_xlen(xlen, x.shape[0])
+        generator = generator if self.training else None
         with full_fp32():
             if self.frontend is not None:
                 assert x.ndim == 2, 'frontend expects raw signal (B, T)'
                 mask = None
                 if xlen is not None:
                     mask = temporal_mask(x.shape[-1], compute_output_lengths(x.shape[-1], xlen))
-                x = self.frontend(x, mask=mask)
+                x = self.frontend(x, mask=mask, generator=generator)
 
             assert x.ndim == 3, 'features expected as (B, T, C)'
             if self.normalize_features:
@@ -275,7 +316,7 @@ class JasperNet(nn.Module):
 
             residual: list = []
             for i in range(self.num_blocks):
-                x = getattr(self, f'block{i}')(x, xlen, tuple(residual))
+                x = getattr(self, f'block{i}')(x, xlen, tuple(residual), generator)
                 if i >= self.num_blocks - num_epilogue - 1:             # no residuals for epilogue
                     residual = []
                 elif self.residual == 'dense':
@@ -285,7 +326,7 @@ class JasperNet(nn.Module):
                 else:
                     residual = []
 
-            logits = [y.transpose(1, 2) for y in self.decoder(x)]      # (B, T', C)
+            logits = [y.transpose(1, 2) for y in self.decoder(x, generator)]  # (B, T', C)
         log_probs = [F.log_softmax(y.to(torch.float32), dim=-1) for y in logits]
         olen = [compute_output_lengths(y.shape[1], xlen).to(y.device) if xlen is not None
                 else torch.full((y.shape[0],), y.shape[1], dtype=torch.int32, device=y.device)

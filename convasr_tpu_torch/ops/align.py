@@ -31,25 +31,22 @@ def _library():
 
 
 def shared_bytes(L: int, C: int) -> int:
-    """Shared memory of one block: alpha double-buffered over 2L+1 states and
-    the C-wide log-prob row double-buffered."""
+    """Shared memory of one block of a lattice kernel: two rows of 2L+1 states
+    (alpha double-buffered; for the CTC loss backward, beta and its terms) and
+    two C-wide rows (the staged log-prob row double-buffered; for the
+    backward, the log-prob row and the gradient row)."""
     return (2 * (2 * L + 1) + 2 * C) * 4
 
 
-def ctc_alignment_kernel(log_probs: torch.Tensor, targets: torch.Tensor,
-                         input_lengths: torch.Tensor, target_lengths: torch.Tensor,
-                         blank: typing.Optional[int] = None, return_final: bool = False):
-    """Frame index of each target char, (B, L) int32, computed on the card
-    (and, with return_final, each row's alpha at its last frame, (B, 2L+1)).
-
-    log_probs: (B, T, C) float32 CUDA tensor; targets (B, L) and the (B,)
-    lengths: integer tensors on the same device. Raises on anything else."""
-    global KERNEL_LAUNCHES
+def check_lattice_inputs(log_probs, targets, input_lengths, target_lengths, blank: int,
+                         kernel: str):
+    """Validate the inputs of a kernel over the CTC lattice (csrc/ctc_viterbi.cu,
+    csrc/ctc_loss.cu) and return them as it takes them: float32 log_probs,
+    int32 targets and lengths, all contiguous. Raises on anything else."""
     if not log_probs.is_cuda:
-        raise ValueError('ctc_alignment_kernel takes CUDA tensors; '
-                         'use ops.ctc.ctc_alignment on the CPU')
-    if log_probs.dtype != torch.float32 or log_probs.ndim != 3:
-        raise ValueError(f'log_probs must be (B, T, C) float32, got '
+        raise ValueError(f'{kernel} takes CUDA tensors; use its plain version on the CPU')
+    if not log_probs.is_floating_point() or log_probs.ndim != 3:
+        raise ValueError(f'log_probs must be (B, T, C) float, got '
                          f'{tuple(log_probs.shape)} {log_probs.dtype}')
     B, T, C = log_probs.shape
     if targets.ndim != 2 or targets.shape[0] != B:
@@ -61,13 +58,33 @@ def ctc_alignment_kernel(log_probs: torch.Tensor, targets: torch.Tensor,
             raise ValueError(f'{name} must be an integer tensor on {log_probs.device}')
     if input_lengths.shape != (B,) or target_lengths.shape != (B,):
         raise ValueError('input_lengths and target_lengths must be (B,)')
-    blank = C - 1 if blank is None else int(blank)
     if not 0 <= blank < C:
         raise ValueError(f'blank {blank} outside [0, {C})')
     if shared_bytes(L, C) > MAX_SHARED_BYTES:
         raise ValueError(f'{2 * L + 1} lattice states and {C} classes need '
                          f'{shared_bytes(L, C)} bytes of shared memory, more than '
                          f'the {MAX_SHARED_BYTES} a block has')
+    return (log_probs.to(torch.float32).contiguous(), targets.to(torch.int32).contiguous(),
+            input_lengths.to(torch.int32).contiguous(),
+            target_lengths.to(torch.int32).contiguous())
+
+
+def ctc_alignment_kernel(log_probs: torch.Tensor, targets: torch.Tensor,
+                         input_lengths: torch.Tensor, target_lengths: torch.Tensor,
+                         blank: typing.Optional[int] = None, return_final: bool = False):
+    """Frame index of each target char, (B, L) int32, computed on the card
+    (and, with return_final, each row's alpha at its last frame, (B, 2L+1)).
+
+    log_probs: (B, T, C) float32 CUDA tensor; targets (B, L) and the (B,)
+    lengths: integer tensors on the same device. Raises on anything else."""
+    global KERNEL_LAUNCHES
+    if log_probs.is_cuda and log_probs.dtype != torch.float32:
+        raise ValueError(f'log_probs must be float32, got {log_probs.dtype}')
+    blank = log_probs.shape[-1] - 1 if blank is None else int(blank)
+    log_probs, targets32, xlen32, ylen32 = check_lattice_inputs(
+        log_probs, targets, input_lengths, target_lengths, blank, 'ctc_alignment_kernel')
+    B, T, C = log_probs.shape
+    L = targets.shape[1]
     S = 2 * L + 1
     dev = log_probs.device
     frames = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -77,10 +94,6 @@ def ctc_alignment_kernel(log_probs: torch.Tensor, targets: torch.Tensor,
         final.fill_(-1e30)
         return (frames, final) if return_final else frames
     fn = _library()
-    log_probs = log_probs.contiguous()
-    targets32 = targets.to(torch.int32).contiguous()
-    xlen32 = input_lengths.to(torch.int32).contiguous()
-    ylen32 = target_lengths.to(torch.int32).contiguous()
     bp = torch.empty((B, T, S), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         rc = fn(log_probs.data_ptr(), targets32.data_ptr(), xlen32.data_ptr(),

@@ -1,5 +1,5 @@
-"""CTC forced alignment and greedy decoding in plain PyTorch (counterpart of
-convasr_tpu/ops/ctc.py).
+"""CTC loss, forced alignment and greedy decoding in plain PyTorch
+(counterpart of convasr_tpu/ops/ctc.py).
 
 `ctc_alignment` is the CPU path of ops/align.py and the oracle that the CUDA
 Viterbi kernel (csrc/ctc_viterbi.cu) is held against. It computes exactly
@@ -13,7 +13,11 @@ States beyond a row's own lattice (s >= 2*ylen+1) get -1e30 emissions, as in
 the JAX package's Pallas kernel; they can never feed the states the
 backtrace visits, so the char frames equal those of the JAX scan.
 
-`ctc_loss` comes with the training slice.
+`ctc_loss` is the JAX package's time scan, with the gradient from autograd
+through a Python loop over frames: the oracle of the plain versions beside
+the CTC loss kernels (ops/ctc_loss.py). It follows the scan, not the TPU
+kernel, where the two differ: a row with xlen = 0 still takes frame 0 and
+gets a finite loss.
 """
 import typing
 
@@ -40,6 +44,44 @@ def _diff_labels(ext_targets: torch.Tensor, blank: int) -> torch.Tensor:
 
 def _shift(alpha, k):
     return torch.cat([torch.full_like(alpha[:, :k], NEG_INF), alpha[:, :-k]], dim=1)
+
+
+def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor,
+             input_lengths: torch.Tensor, target_lengths: torch.Tensor,
+             blank: typing.Optional[int] = None) -> torch.Tensor:
+    """Per-utterance CTC negative log-likelihood, (B,) float32; +inf where no
+    alignment fits (ops/ctc.py:44-106 of the JAX package).
+
+    log_probs: (B, T, C) log-softmax outputs; targets: (B, L) padded labels;
+    input_lengths and target_lengths: (B,) ints. blank defaults to C-1."""
+    B, T, C = log_probs.shape
+    L = targets.shape[1]
+    blank = C - 1 if blank is None else blank
+    ext = interleave_blanks(targets.long(), blank)
+    can_skip = _diff_labels(ext, blank)
+    lp = log_probs.to(torch.float32)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=lp.device)
+
+    first = [lp[:, 0, blank:blank + 1]] + ([lp[:, 0].gather(1, ext[:, 1:2])] if L else [])
+    alpha = torch.cat(first + [torch.full((B, 2 * L + 1 - len(first)), NEG_INF,
+                                          device=lp.device)], dim=1)
+    for t in range(1, T):
+        stacked = torch.stack([alpha, _shift(alpha, 1),
+                               torch.where(can_skip, _shift(alpha, 2), neg)])
+        m = stacked.max(dim=0).values
+        lse = m + torch.log(torch.exp(stacked - m[None]).sum(dim=0))
+        lse = torch.where(m <= NEG_INF / 2, neg, lse)
+        new = torch.maximum(lse + lp[:, t].gather(1, ext), neg)
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+
+    ylen = target_lengths.long()
+    a1 = alpha.gather(1, (2 * ylen - 1).clamp(min=0)[:, None])[:, 0]
+    a2 = alpha.gather(1, (2 * ylen)[:, None])[:, 0]
+    m = torch.maximum(a1, a2)
+    ll = m + torch.log(torch.exp(a1 - m) + torch.exp(a2 - m))
+    ll = torch.where(ylen == 0, a2, ll)
+    ll = torch.where(ll <= NEG_INF / 2, torch.full_like(ll, -float('inf')), ll)
+    return -ll
 
 
 def viterbi(log_probs, targets, input_lengths, target_lengths, blank: int):

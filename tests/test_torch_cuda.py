@@ -73,3 +73,70 @@ def test_auto_dispatches_to_kernel(card):
     before = align.KERNEL_LAUNCHES
     out = align.ctc_alignment_auto(*(t.to(card) for t in (lp, y, xlen, ylen)), blank=blank)
     assert out.is_cuda and align.KERNEL_LAUNCHES == before + 1
+
+
+# --- CTC loss kernels (csrc/ctc_loss.cu) -----------------------------------
+
+def loss_batch(seed, B=4, T=30, C=7, L=5, blank=None, empty_row=False, infeasible_row=False,
+               zero_xlen_row=False, repeated=False):
+    lp, y, xlen, ylen, blank = make_batch(seed, B=B, T=T, C=C, L=L, blank=blank,
+                                          empty_row=empty_row)
+    if repeated:                      # runs of one label: skips are barred there
+        y[:, 1::2] = y[:, 0:-1:2]
+    if infeasible_row:                # 2*ylen+1 states cannot fit into 3 frames
+        xlen[1], ylen[1] = 3, L
+    if zero_xlen_row:
+        xlen[-1], ylen[-1] = 0, 0
+    return lp, y, xlen, ylen, blank
+
+
+LOSS_CASES = dict(
+    base=dict(seed=20),
+    odd_batch_and_time=dict(seed=21, B=3, T=19),
+    empty_target=dict(seed=22, B=5, T=25, empty_row=True),
+    non_last_blank=dict(seed=23, B=4, T=26, C=9, L=6, blank=0),
+    repeated_labels=dict(seed=24, B=6, T=40, C=5, L=8, repeated=True),
+    infeasible_row=dict(seed=25, B=4, T=28, L=6, infeasible_row=True),
+    zero_input_length=dict(seed=26, B=3, T=24, zero_xlen_row=True),
+    many_states=dict(seed=27, B=3, T=400, C=40, L=700),        # 1401 states: 2 per thread
+)
+
+
+@pytest.mark.parametrize('case', LOSS_CASES)
+def test_ctc_loss_kernels_equal_plain(card, case):
+    from convasr_tpu_torch.ops import ctc_loss
+    lp, y, xlen, ylen, blank = loss_batch(**LOSS_CASES[case])
+    g = torch.from_numpy(np.random.RandomState(1).uniform(0.5, 1.5, lp.shape[0]).astype(np.float32))
+    alpha, ll = ctc_loss.alpha_plain(lp, y, xlen, ylen, blank)
+    grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
+    on_card = [t.to(card) for t in (lp, y, xlen, ylen)]
+    before = (ctc_loss.ALPHA_LAUNCHES, ctc_loss.BETA_GRAD_LAUNCHES)
+    k_alpha, k_ll = ctc_loss.alpha_kernel(*on_card, blank)
+    k_grad = ctc_loss.beta_grad_kernel(*on_card, k_alpha, k_ll, g.to(card), blank)
+    torch.cuda.synchronize()
+    assert (ctc_loss.ALPHA_LAUNCHES, ctc_loss.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    feasible = ll > -5e29
+    assert torch.equal(k_ll.cpu() > -5e29, feasible)
+    # the recursions are the same float32 operations; expf/logf of the card's
+    # library and of the CPU's differ in the last bit
+    np.testing.assert_allclose(k_alpha.cpu().numpy(), alpha.numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(k_ll.cpu()[feasible].numpy(), ll[feasible].numpy(), rtol=1e-5)
+    # gamma in [0, 1] summed per class with shared-memory atomics in any order
+    np.testing.assert_allclose(k_grad.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
+    assert (k_grad.cpu()[~feasible] == 0).all()
+
+
+def test_ctc_loss_auto_runs_both_kernels(card):
+    from convasr_tpu_torch.ops import ctc_loss
+    lp, y, xlen, ylen, blank = loss_batch(seed=28, B=5, T=33)
+    x = lp.to(card).requires_grad_()
+    before = (ctc_loss.ALPHA_LAUNCHES, ctc_loss.BETA_GRAD_LAUNCHES)
+    loss = ctc_loss.ctc_loss_auto(x, *(t.to(card) for t in (y, xlen, ylen)), blank=blank)
+    loss.mean().backward()            # an expanded (stride 0) cotangent
+    torch.cuda.synchronize()
+    assert (ctc_loss.ALPHA_LAUNCHES, ctc_loss.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    x_cpu = lp.clone().requires_grad_()
+    ref = ctc_loss.ctc_loss_auto(x_cpu, y, xlen, ylen, blank=blank)
+    ref.mean().backward()
+    np.testing.assert_allclose(loss.detach().cpu().numpy(), ref.detach().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(x.grad.cpu().numpy(), x_cpu.grad.numpy(), rtol=1e-3, atol=1e-4)
