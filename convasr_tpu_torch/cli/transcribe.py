@@ -7,8 +7,11 @@ outputs.
         -i audio_or_dir_or_transcript.json -o out --output-json --align
 
 Runs on the card (--device cuda, the default) and raises if there is none;
---device cpu runs the plain PyTorch versions of every kernel. Flags that the
-JAX CLI has and the port has not reached yet raise NotImplementedError.
+--device cpu runs the plain PyTorch versions of every kernel. --quantize int8
+calibrates activation scales on the first --calibration-batches items (or
+reads --calibration-cache) and then runs every forward as int8 PTQ inference
+(models/quantized.py) on the int8 conv and GEMM kernels. Flags that the JAX
+CLI has and the port has not reached yet raise NotImplementedError.
 """
 import argparse
 import collections
@@ -26,6 +29,7 @@ from ..decode.generators import GreedyCTCGenerator
 from ..frontend.logmel import LogFilterBankFrontend
 from ..metrics import cer as cer_fn
 from ..models.jasper import JasperNet
+from ..models.quantized import quantize_cached, quantized_apply, to_device
 from ..models.zoo import create_model
 from ..ops.align import ctc_alignment_auto as ctc_alignment
 from ..text import ProcessingPipeline
@@ -56,7 +60,7 @@ def ckpt_model_overrides(ckpt_args: dict) -> dict:
 def check_ported(args):
     """Flags outside the port's first slice fail loudly instead of being ignored."""
     unported = dict(
-        decoder=args.decoder != 'GreedyDecoder', quantize=args.quantize is not None,
+        decoder=args.decoder != 'GreedyDecoder',
         vad=args.vad is not None, diarize=args.diarize, data_parallel=args.data_parallel,
         output_html=args.output_html, logits=args.logits, align_words=args.align_words,
         frontend=args.frontend == 'Wav2VecFrontend')
@@ -105,16 +109,32 @@ def setup(args):
         model.load_state_dict(state_dict)
     model.to(device).eval()
 
+    # int8 PTQ (--quantize int8): qstate is filled by forward.calibrate(batches)
+    # once the first data batches exist; from then on every entry point runs
+    # quantized_apply on the quantized tree, put on the device once
+    qstate = {}
+
+    def _outputs(x, xlen):
+        if qstate:
+            out = quantized_apply(model, qstate['qtree'], x, xlen=xlen)
+        else:
+            out = model(x, xlen=xlen)
+        return out['log_probs'][head], out['logits'][head], out['olen'][head]
+
     # inference_mode is thread-local: each entry point enters it itself, since
     # the one-ahead dispatch calls them from a worker thread
     def forward(x, xlen):
         """(B, T) signal + (B,) fractions -> log_probs, logits, olen of the head."""
         with torch.inference_mode():
-            out = model(x.to(device), xlen=xlen.to(device))
-            return out['log_probs'][head], out['logits'][head], out['olen'][head]
+            return _outputs(x.to(device), xlen.to(device))
+
+    def calibrate(batches, percentile=100.0, cache_path=None):
+        """PTQ on the model's device (the card under --device cuda)."""
+        qstate['qtree'] = to_device(
+            quantize_cached(model, batches, percentile, cache_path=cache_path), device)
 
     def _fused(x, xlen):
-        lp = model(x, xlen=xlen)['log_probs'][head]
+        lp = _outputs(x, xlen)[0]
         best = lp.max(dim=-1)
         return torch.stack([best.indices.to(torch.float32), best.values], dim=-1)  # (B, T', 2)
 
@@ -129,7 +149,7 @@ def setup(args):
             x = x_i16.to(device).to(torch.float32) / 32767.0
             return _fused(x, xlen.to(device))
 
-    forward.fused, forward.fused_i16 = fused, fused_i16
+    forward.calibrate, forward.fused, forward.fused_i16 = calibrate, fused, fused_i16
     generator = GreedyCTCGenerator(blank_amount_to_space=args.replace_blank_series)
     return text_pipeline, frontend, model, forward, generator
 
@@ -180,6 +200,19 @@ def main(args, ext_json=('.json', '.json.gz')):
 
     csv_sep = dict(tab='\t', comma=',')[args.csv_sep]
     csv_lines = []
+
+    if args.quantize == 'int8' and len(dataset):
+        # PTQ calibration on the first batches of the input corpus
+        calib = []
+        for k in range(min(args.calibration_batches, len(dataset))):
+            _, _, cx, cxlen, _, _ = dataset.collate_fn(dataset[k])
+            if cx.size:
+                calib.append(dict(x=np.asarray(cx[:, 0, :]), xlen=np.asarray(cxlen)))
+        tic = time.time()
+        forward.calibrate(calib, percentile=args.calibration_percentile,
+                          cache_path=args.calibration_cache)
+        print(f'int8 PTQ: calibrated on {len(calib)} batch(es) '
+              f'in {time.time() - tic:.1f} sec')
 
     items = prefetch_map(lambda i: _timed('getitem', dataset.__getitem__, i),
                          range(len(dataset)), num_workers=args.num_workers)
@@ -369,7 +402,20 @@ def build_parser():
     parser.add_argument('--output-csv', action='store_true')
     parser.add_argument('--csv-sep', default='tab', choices=['tab', 'comma'])
     parser.add_argument('--bf16', type=str2bool, nargs='?', const=True, default=True)
-    parser.add_argument('--quantize', choices=['int8'], default=None, help='not yet ported')
+    parser.add_argument('--quantize', choices=['int8'], default=None,
+                        help='int8 PTQ inference: BN-folded per-channel int8 '
+                             'weights + calibrated activation scales; convs '
+                             'run on the int8 tensor-core kernels')
+    parser.add_argument('--calibration-batches', type=int, default=1,
+                        help='number of leading input batches used for '
+                             'activation-scale calibration (--quantize)')
+    parser.add_argument('--calibration-cache', default=None,
+                        help='activation-scales cache file (.npz): written '
+                             'after the first calibration, loaded instead of '
+                             'recalibrating; valid only for the same '
+                             'checkpoint + calibration setup')
+    parser.add_argument('--calibration-percentile', type=float, default=100.0,
+                        help='|x| percentile for activation scales (100 = absmax)')
     parser.add_argument('--num-workers', type=int, default=0)
     parser.add_argument('--data-parallel', action='store_true', help='not yet ported')
     parser.add_argument('--profile-phases', action='store_true',

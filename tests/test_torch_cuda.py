@@ -140,3 +140,107 @@ def test_ctc_loss_auto_runs_both_kernels(card):
     ref.mean().backward()
     np.testing.assert_allclose(loss.detach().cpu().numpy(), ref.detach().numpy(), rtol=1e-5)
     np.testing.assert_allclose(x.grad.cpu().numpy(), x_cpu.grad.numpy(), rtol=1e-3, atol=1e-4)
+
+
+# --- int8 conv and GEMM kernels (csrc/int8_conv.cu, csrc/int8_gemm.cu) ------
+
+def int8_tensors(seed, *shapes, full=False):
+    rng = np.random.RandomState(seed)
+    if full:                          # all +-127: the largest sums
+        return [torch.from_numpy(np.where(rng.rand(*s) < 0.5, -127, 127).astype(np.int8))
+                for s in shapes]
+    return [torch.from_numpy(rng.randint(-128, 128, size=s).astype(np.int8)) for s in shapes]
+
+
+INT8_CONV_CASES = dict(
+    prologue=dict(B=8, T=601, Cin=64, Cout=256, K=11, stride=2),        # the path's shapes
+    block10_k25=dict(B=8, T=301, Cin=640, Cout=768, K=25),
+    epilogue_k29=dict(B=8, T=301, Cin=768, Cout=896, K=29),
+    overflow_edge=dict(B=1, T=70, Cin=768, Cout=8, K=29, full=True),
+    dilation2=dict(B=2, T=77, Cin=32, Cout=40, K=11, dilation=2),
+    ragged=dict(B=3, T=37, Cin=13, Cout=6, K=11),                       # byte loads
+    ragged_cout=dict(B=2, T=45, Cin=48, Cout=38, K=5, stride=2),
+    t_shorter_than_k=dict(B=2, T=9, Cin=16, Cout=16, K=29),
+)
+
+
+@pytest.mark.parametrize('case', INT8_CONV_CASES)
+def test_int8_conv_kernel_equals_plain(card, case):
+    from convasr_tpu_torch.ops import int8
+    c = dict(INT8_CONV_CASES[case])
+    stride, dilation = c.pop('stride', 1), c.pop('dilation', 1)
+    x, w = int8_tensors(sorted(INT8_CONV_CASES).index(case), (c['B'], c['T'], c['Cin']),
+                        (c['K'], c['Cin'], c['Cout']), full=c.get('full', False))
+    x, w = x.to(card), w.to(card)
+    before = int8.CONV_LAUNCHES
+    got = int8.int8_conv1d(x, w, stride, dilation)
+    want = int8.int8_conv1d_plain(x, w, stride, dilation)
+    torch.cuda.synchronize()
+    assert int8.CONV_LAUNCHES == before + 1
+    assert got.shape == want.shape and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+INT8_GEMM_CASES = dict(
+    block1_res0=dict(M=2408, K=256, N=256),                  # whole-K on the path
+    block6_fused=dict(M=2408, K=1792, N=512),
+    head=dict(M=2408, K=1024, N=38),
+    ragged_whole_k=dict(M=7, K=13, N=38),
+    block10_fused=dict(M=2408, K=4096, N=768),               # K-tiled on the path
+    ragged_k_tiled=dict(M=33, K=1801, N=17),
+    overflow_edge=dict(M=70, K=4096, N=16, full=True),
+)
+
+
+@pytest.mark.parametrize('case', INT8_GEMM_CASES)
+def test_int8_gemm_kernels_equal_plain(card, case):
+    from convasr_tpu_torch.ops import int8
+    c = INT8_GEMM_CASES[case]
+    a, b = (t.to(card) for t in int8_tensors(20 + sorted(INT8_GEMM_CASES).index(case),
+                                             (c['M'], c['K']), (c['K'], c['N']),
+                                             full=c.get('full', False)))
+    whole_k = c['K'] <= int8.WHOLE_K_MAX
+    before = (int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_K_TILED_LAUNCHES)
+    got = int8.int8_matmul(a, b)
+    want = int8.int8_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert (int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_K_TILED_LAUNCHES) == \
+        (before[0] + whole_k, before[1] + (not whole_k))
+    assert torch.equal(got, want)
+
+
+def test_int8_auto_dispatch_counts_each_variant(card):
+    from convasr_tpu_torch.ops import int8
+    x, w = (t.to(card) for t in int8_tensors(30, (2, 20, 16), (3, 16, 8)))
+    a, b_short, b_deep = (t.to(card) for t in int8_tensors(31, (5, 2000), (16, 8), (2000, 8)))
+    before = (int8.CONV_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_K_TILED_LAUNCHES)
+    int8.int8_conv1d_auto(x, w)
+    int8.int8_matmul_auto(a[:, :16].contiguous(), b_short)
+    int8.int8_matmul_auto(a, b_deep)
+    torch.cuda.synchronize()
+    assert (int8.CONV_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_K_TILED_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+def test_int8_forward_on_card_matches_cpu(card):
+    """The same quantized tree on the card and on the CPU. The int8 products
+    are exact on both; the float32 instance norm and log_softmax sum in
+    another order, and a value within an ulp of a .5 boundary flips one int8
+    step: log-probs within 1e-3, greedy ids >= 99% equal."""
+    from convasr_tpu_torch.models import quantized
+    from convasr_tpu_torch.models.zoo import create_model
+    from convasr_tpu_torch.ops import int8
+    torch.manual_seed(0)
+    model = create_model('JasperNetBig', 16, (38,), base_width=8).eval()
+    rng = np.random.RandomState(40)
+    x = torch.from_numpy(rng.randn(2, 96, 16).astype(np.float32))
+    xlen = torch.tensor([1.0, 0.625])
+    qtree = quantized.quantize(model, [dict(x=x.numpy(), xlen=xlen.numpy())])
+    cpu = quantized.quantized_apply(model, qtree, x, xlen)['log_probs'][0]
+    model.to(card)
+    before = (int8.CONV_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES)
+    on_card = quantized.quantized_apply(model, quantized.to_device(qtree, card), x.to(card),
+                                        xlen.to(card))['log_probs'][0].cpu()
+    assert int8.CONV_LAUNCHES == before[0] + 32 and int8.GEMM_WHOLE_K_LAUNCHES == before[1] + 12
+    np.testing.assert_allclose(on_card.numpy(), cpu.numpy(), rtol=0, atol=1e-3)
+    assert (on_card.argmax(-1) == cpu.argmax(-1)).float().mean() >= 0.99

@@ -16,6 +16,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'convasr_tpu'))
 print(len(names), 'modules;', 'forbidden:', bad)
 assert len(names) >= 20 and not bad
+assert {'convasr_tpu_torch.models.quantized', 'convasr_tpu_torch.ops.int8'} <= set(names)
 '''
 
 

@@ -112,12 +112,23 @@ def run(package, ckpt, ref_json, out_dir, extra):
         return json.load(f)
 
 
-@pytest.mark.parametrize('extra', [['--align'], []], ids=['align', 'fused_int16'])
-def test_port_cli_matches_jax_cli(checkpoints_and_audio, extra):
+@pytest.mark.parametrize('extra', [['--align'], [], ['--quantize', 'int8'],
+                                   ['--quantize', 'int8', '--align']],
+                         ids=['align', 'fused_int16', 'int8', 'int8_align'])
+def test_port_cli_matches_jax_cli(checkpoints_and_audio, extra, capsys):
+    """Under --quantize int8 both CLIs read one activation-scales cache,
+    written by the JAX run's calibration."""
     jax_ckpt, torch_ckpt, ref_json, tmp = checkpoints_and_audio
     name = '_'.join(extra) or 'fused'
+    if '--quantize' in extra:
+        extra = extra + ['--calibration-cache', str(tmp / f'act_scales_{name}.npz')]
     ref = run('jax', jax_ckpt, ref_json, str(tmp / f'jax_{name}'), extra)
+    if '--quantize' in extra:
+        assert os.path.exists(extra[-1])
+    capsys.readouterr()
     ours = run('torch', torch_ckpt, ref_json, str(tmp / f'torch_{name}'), extra)
+    if '--quantize' in extra:
+        assert 'int8 PTQ: calibrated on 1 batch(es)' in capsys.readouterr().out
     assert len(ours) == len(ref) == len(REFS)
     for o, r in zip(ours, ref):
         assert o['hyp'] == r['hyp'] and o['ref'] == r['ref']
