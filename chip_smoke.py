@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. build: compiles every kernel in convasr_tpu_torch/csrc/ (one nvcc each,
-   all at once) into build/kernels/;
+   all at once) into build/kernels/, and beside them the host C++ beam
+   (native/ctc_beam.cpp, g++) into build/native/;
 2. transcribe: the port's `cli/transcribe.main` with --align on CUDA, at the
    full width of JasperNetBig (random weights from a seed, 64 log-mel
    features, ru char_legacy head) over synthetic 8 kHz audio with Russian
@@ -40,13 +41,31 @@
    cuDNN's bf16 F.conv1d at the conv's shape; the port calls neither;
 10. check: the int8 JasperNetBig forward on the card against the same
    quantized tree on the CPU on a short input, and its agreement with the
-   float32 model.
+   float32 model;
+11. beam transcribe: the port's `cli/transcribe.main` on CUDA (bf16) over the
+   corpus and checkpoint of phase 2 with each beam decoder, on LMs trained in
+   the run from WORDS with the port's ngram_lm: BeamSearchDecoderDevice
+   (width 16, top 8 chars, a char bigram fused on the card),
+   BeamSearchDecoderDeviceLM (width 16, its hypotheses rescored with a word
+   trigram) and BeamSearchDecoder (the host C++ beam, width 64, the word
+   trigram fused); wall time, audio-seconds/s and decode seconds per batch;
+   a spy asserts that the device beam's inputs are CUDA tensors;
+12. check: the device beam on the card against the same call on the CPU, on
+   phase 11's log-probs: tokens and lengths bit-equal, scores within 1e-4;
+   the card call's kernel launches per frame and busy share by
+   torch.profiler;
+13. kernels: the whole-T CTC loss kernels (K2f/K2b, ctc_loss_whole_t: no CLI
+   path reaches them) driven forward and backward on phase 5's captured train
+   batch with their launch counts set to 0 just before and read just after,
+   then held against their plain versions on that batch and at phase 6's two
+   seeded shapes, timed beside K1 and torch.nn.functional.ctc_loss.
 
 Prints the card's name and power limit, one JSON line of kernels, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when there is no CUDA device or the port is not beside this script; any
 failing phase raises.
 """
+import concurrent.futures
 import copy
 import json
 import os
@@ -181,6 +200,7 @@ def main():
         from convasr_tpu_torch.cli import transcribe
         from convasr_tpu_torch.models.zoo import create_model
         from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
+        from convasr_tpu_torch.native import build as native_build
         from convasr_tpu_torch.ops import align, build, ctc_loss
         from convasr_tpu_torch.ops.ctc import ctc_alignment
         from convasr_tpu_torch.train.checkpoints import save_checkpoint
@@ -196,8 +216,11 @@ def main():
 
     # 1. build
     tic = time.perf_counter()
-    names = build.build_all()
-    log(f'build: {names} in {time.perf_counter() - tic:.2f} s')
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_build.build_library, 'ctc_beam.cpp')
+        names = build.build_all()
+        native = native.result()
+    log(f'build: {names} and {native.name} (g++) in {time.perf_counter() - tic:.2f} s')
     for name, info in build.BUILD_LOG.items():
         regs = [line.split('ptxas info    : ')[-1] for line in info['ptxas'].splitlines()
                 if 'registers' in line]
@@ -315,9 +338,12 @@ def main():
     assert diff < 1e-3, f'card vs CPU log-probs differ by {diff}'
     log(f'check: JasperNetBig float32 log-probs card vs CPU max |diff| {diff:.2e} (< 1e-3)')
 
-    kernels += train_phases(device)
+    train_kernels, loss_cases = train_phases(device)
+    kernels += train_kernels
     kernels += int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model,
                            bf16_run=dict(wall=wall, decode=decode))
+    beam_phases(device, ckpt, corpus, audio_seconds, num_segments)
+    kernels += whole_t_phases(loss_cases)
 
     print(card)
     print(json.dumps(dict(kernels=kernels)))
@@ -385,7 +411,8 @@ def profile_train_step(device, model, batch, loop, optim):
 
 
 def train_phases(device):
-    """Phases 5-7; returns the JSON records of the two CTC loss kernels."""
+    """Phases 5-7; returns the JSON records of the two CTC loss kernels and
+    phase 6's cases (label, [log_probs, targets, xlen, ylen, blank, g])."""
     import torch.nn.functional as F
     from convasr_tpu_torch.cli import train as train_cli
     from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
@@ -606,7 +633,7 @@ def train_phases(device):
     log(f'check: JasperNetBig float32 train step (B=2, 1 s, TF32 off) card vs CPU: loss '
         f'{card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_rel:.2e} < 1e-4); largest relative '
         f'difference of a tensor\'s update {update_rel:.2e} (< 1e-2)')
-    return kernels
+    return kernels, cases
 
 
 def int8_bound_ms(ops, nbytes):
@@ -827,6 +854,223 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         f'{rel:.2e} (< 1e-2), max |diff| {float((on_card - on_cpu).abs().max()):.2e}, greedy '
         f'ids equal {agree:.4f} (>= 0.98); int8 vs the float32 model (random weights, '
         f'not a gate): cosine {cos:.6f}, greedy ids equal {f_agree:.4f}')
+    return kernels
+
+
+def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
+    """Phases 11-12: transcribe with each beam decoder, and the device beam on
+    the card against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    from convasr_tpu_torch.cli import transcribe
+    from convasr_tpu_torch.ops import align, beam_device, ctc_loss, ctc_loss_whole_t, int8
+    from convasr_tpu_torch.text.ngram_lm import char_tokenize, save_arpa, train_ngram_lm
+
+    # 11. beam transcribe at full JasperNetBig width, LMs trained in the run
+    rng = np.random.RandomState(11)
+    sentences = [random_words(rng, int(rng.randint(20, 120))) for _ in range(500)]
+    char_lm = save_arpa(train_ngram_lm([char_tokenize(t) for t in sentences], order=2),
+                        str(WORK / 'char2.arpa'))
+    word_lm = save_arpa(train_ngram_lm([t.split() for t in sentences], order=3),
+                        str(WORK / 'word3.arpa'))
+    runs = [('BeamSearchDecoderDevice', ['--beam-width', '16', '--beam-cutoff-top-n', '8',
+                                         '--lm', char_lm]),
+            ('BeamSearchDecoderDeviceLM', ['--beam-width', '16', '--lm', word_lm]),
+            ('BeamSearchDecoder', ['--beam-width', '64', '--lm', word_lm])]
+    setup, search = transcribe.setup, beam_device.beam_search_device
+    seen, beam_calls = {}, []
+
+    def spy_setup(args):
+        tic = time.perf_counter()
+        out = setup(args)
+        seen['setup_s'] = time.perf_counter() - tic
+        decoder = out[5]
+        decode = decoder.decode
+
+        def timed_decode(*a, **kw):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            hyps = decode(*a, **kw)
+            torch.cuda.synchronize()
+            seen['decode_s'].append(time.perf_counter() - tic)
+            return hyps
+        decoder.decode = timed_decode
+        return out
+
+    def spy_search(log_probs, input_lengths, *a, **kw):
+        beam_calls.append((log_probs.is_cuda and input_lengths.is_cuda,
+                           log_probs.detach().clone(), input_lengths.clone(), a, dict(kw)))
+        return search(log_probs, input_lengths, *a, **kw)
+
+    def counts():
+        return dict(ctc_viterbi_align=align.KERNEL_LAUNCHES,
+                    ctc_loss_alpha=ctc_loss.ALPHA_LAUNCHES,
+                    ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES,
+                    ctc_loss_whole_t_alpha=ctc_loss_whole_t.ALPHA_LAUNCHES,
+                    ctc_loss_whole_t_beta_grad=ctc_loss_whole_t.BETA_GRAD_LAUNCHES,
+                    int8_conv=int8.CONV_LAUNCHES, int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
+                    int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES)
+
+    first_call = None
+    transcribe.setup, beam_device.beam_search_device = spy_setup, spy_search
+    try:
+        for decoder, flags in runs:
+            out_dir = str(WORK / f'transcribe_{decoder}')
+            args = transcribe.build_parser().parse_args(
+                ['--checkpoint', ckpt, '-i', corpus, '-o', out_dir, '--device', 'cuda',
+                 '--decoder', decoder, '--output-json', '--mono'] + flags)
+            assert args.bf16
+            seen['decode_s'], beam_calls[:] = [], []
+            align.KERNEL_LAUNCHES = ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
+            ctc_loss_whole_t.ALPHA_LAUNCHES = ctc_loss_whole_t.BETA_GRAD_LAUNCHES = 0
+            int8.CONV_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            transcribe.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tic
+            launches = counts()
+            outputs = sorted(os.listdir(out_dir))
+            segments = [seg for o in outputs if o.endswith('.json')
+                        for seg in json.load(open(os.path.join(out_dir, o)))]
+            assert len(segments) == num_segments and all(
+                np.isfinite(seg['cer']) for seg in segments), segments[:2]
+            batches = len(seen['decode_s'])
+            assert batches == 2, f'{decoder}: {batches} decoded batches'
+            on_card = decoder != 'BeamSearchDecoder'
+            assert len(beam_calls) == (batches if on_card else 0), len(beam_calls)
+            assert all(cuda for cuda, *_ in beam_calls), 'the device beam ran on host tensors'
+            if first_call is None:
+                first_call = beam_calls[0][1:]
+            decode = wall - seen['setup_s']
+            log(f'transcribe --decoder {decoder} {" ".join(flags[:-2])}: {wall:.2f} s wall for '
+                f'{audio_seconds:.0f} s of audio = {audio_seconds / wall:.1f} audio-seconds/s; '
+                f'setup {seen["setup_s"]:.2f} s, the rest {decode:.2f} s = '
+                f'{audio_seconds / decode:.1f} audio-seconds/s; decode s per batch '
+                f'{[round(t, 3) for t in seen["decode_s"]]}; device beam on CUDA tensors: '
+                f'{on_card} ({len(beam_calls)} calls); mean cer '
+                f'{statistics.mean(seg["cer"] for seg in segments):.3f} (random weights); '
+                f'launches of the hand kernels {launches} (the path has none)')
+    finally:
+        transcribe.setup, beam_device.beam_search_device = setup, search
+
+    # 12. the device beam on the card against the same call on the CPU
+    lp, lengths, a, kw = first_call
+    kw_cpu = dict(kw, lm_table=torch.as_tensor(kw['lm_table']).cpu())
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    card = search(lp, lengths, *a, **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    cpu = search(lp.cpu(), lengths.cpu(), *a, **kw_cpu)
+    cpu_s = time.perf_counter() - tic
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1]), \
+        'device beam tokens or lengths differ between the card and the CPU'
+    score_err = float((card[2].cpu() - cpu[2]).abs().max())
+    assert score_err < 1e-4, f'device beam scores differ by {score_err}'
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        search(lp, lengths, *a, **kw)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - tic
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    B, T, C = lp.shape
+    log(f'check: device beam (B={B} T={T} C={C} K={kw["beam_width"]} N='
+        f'{kw["cutoff_top_n"]}, char bigram fused) card vs CPU: tokens and lengths bit-equal, '
+        f'scores max |diff| {score_err:.2e} (< 1e-4); card {card_s * 1e3:.1f} ms, CPU '
+        f'{cpu_s * 1e3:.1f} ms; under torch.profiler {prof_wall * 1e3:.1f} ms wall, '
+        f'{n_kernels} kernels = {n_kernels / T:.1f} a frame, card busy {busy_ms:.1f} ms '
+        f'({busy_ms / (prof_wall * 1e3):.1%} of the wall)')
+
+
+def whole_t_phases(cases):
+    """Phase 13; returns the JSON records of K2f and K2b."""
+    import torch.nn.functional as F
+    from convasr_tpu_torch.ops import ctc_loss, ctc_loss_whole_t as k2
+
+    # 13. the whole-T loss forward and backward on phase 5's captured batch
+    lp, y, xlen, ylen, blank, g = cases[0][1]
+    x = lp.detach().clone().requires_grad_()
+    k2.ALPHA_LAUNCHES = k2.BETA_GRAD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    loss = k2.ctc_loss_whole_t(x, y, xlen, ylen, blank=blank)
+    (loss * g).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(ctc_loss_whole_t_alpha=k2.ALPHA_LAUNCHES,
+                    ctc_loss_whole_t_beta_grad=k2.BETA_GRAD_LAUNCHES)
+    assert all(n > 0 for n in launches.values()), f'a K2 kernel never ran: {launches}'
+    k1_loss = ctc_loss.ctc_loss_auto(lp, y, xlen, ylen, blank=blank)
+    assert torch.isfinite(loss).all() and torch.isfinite(x.grad).all()
+    k1_rel = float(((loss.detach() - k1_loss).abs() / k1_loss.abs()).max())
+    assert k1_rel < 1e-5, f'K2 and K1 losses differ by {k1_rel} on rows with xlen > 0'
+    log(f'ctc_loss_whole_t on the train batch {tuple(lp.shape)}: launches {launches}; loss '
+        f'relative to K1 {k1_rel:.2e} (same math where xlen > 0)')
+
+    records = []
+    for label, (lp, y, xlen, ylen, blank, g) in cases:
+        B, T, C = lp.shape
+        L = y.shape[1]
+        assert k2.smem_fits(T, L, C), f'{label}: T={T} does not fit the whole-T kernels'
+        alpha, ll = k2.alpha_kernel(lp, y, xlen, ylen, blank)
+        grad = k2.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank)
+        ref_alpha, ref_ll = k2.alpha_whole_t_plain(lp, y, xlen, ylen, blank)
+        ref_grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, ref_alpha, ref_ll, g, blank)
+        torch.cuda.synchronize()
+        feasible = ref_ll > -5e29
+        assert torch.equal(ll > -5e29, feasible), f'{label}: feasible rows differ'
+        loss_err = float(((ll - ref_ll).abs() / ref_ll.abs().clamp(min=1))[feasible].max())
+        loss_abs_err = float((ll - ref_ll).abs()[feasible].max())
+        grad_err = float((grad - ref_grad).abs().max())
+        assert loss_err < 1e-5, f'{label}: K2f loss differs from the plain version by {loss_err}'
+        # gamma in [0, 1], summed per class with shared-memory atomics
+        assert torch.allclose(grad, ref_grad, rtol=1e-3, atol=1e-4), \
+            f'{label}: K2b gradient differs from the plain version by {grad_err}'
+        fwd_ms = cuda_ms(lambda: k2.alpha_kernel(lp, y, xlen, ylen, blank), reps=20)
+        bwd_ms = cuda_ms(lambda: k2.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank),
+                         reps=20)
+        k1_alpha, k1_ll = ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank)
+        k1_fwd_ms = cuda_ms(lambda: ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank), reps=20)
+        k1_bwd_ms = cuda_ms(lambda: ctc_loss.beta_grad_kernel(lp, y, xlen, ylen, k1_alpha, k1_ll,
+                                                              g, blank), reps=20)
+        plain_fwd_ms = cuda_ms(lambda: k2.alpha_whole_t_plain(lp, y, xlen, ylen, blank), reps=2)
+        plain_bwd_ms = cuda_ms(lambda: ctc_loss.beta_grad_plain(
+            lp, y, xlen, ylen, ref_alpha, ref_ll, g, blank), reps=2)
+        lp_tbc = lp.transpose(0, 1).contiguous()
+        lib_fwd_ms = cuda_ms(lambda: F.ctc_loss(lp_tbc, y.long(), xlen.long(), ylen.long(),
+                                                blank=blank, reduction='none'), reps=20)
+        leaf = lp_tbc.detach().requires_grad_()
+
+        def lib_pair():
+            out = F.ctc_loss(leaf, y.long(), xlen.long(), ylen.long(), blank=blank,
+                             reduction='none')
+            torch.autograd.grad(out, leaf, g)
+        lib_pair_ms = cuda_ms(lib_pair, reps=20)
+        bounds = ctc_loss_bound_ms(xlen, B, T, C, L)
+        log(f'ctc_loss_whole_t [{label}] B={B} T={T} C={C} L={L}: loss rel err {loss_err:.2e}, '
+            f'grad max abs err {grad_err:.2e}; K2 fwd {fwd_ms:.4f} ms, bwd {bwd_ms:.4f} ms; K1 '
+            f'fwd {k1_fwd_ms:.4f} ms, bwd {k1_bwd_ms:.4f} ms; plain fwd {plain_fwd_ms:.2f} ms, '
+            f'bwd {plain_bwd_ms:.2f} ms; F.ctc_loss fwd {lib_fwd_ms:.4f} ms, fwd+bwd '
+            f'{lib_pair_ms:.4f} ms; bound fwd {bounds["alpha"][0]:.5f} ms '
+            f'({bounds["alpha"][1]}), bwd {bounds["beta_grad"][0]:.5f} ms '
+            f'({bounds["beta_grad"][1]}); shared memory a block '
+            f'{k2.smem_bytes(T, L, C) / 1024:.1f} KiB')
+        records.append(dict(alpha=(fwd_ms, plain_fwd_ms, *bounds['alpha'], lib_fwd_ms,
+                                   loss_abs_err),
+                            beta_grad=(bwd_ms, plain_bwd_ms, *bounds['beta_grad'], lib_pair_ms,
+                                       grad_err)))
+
+    kernels = []
+    for name, key, line in (('ctc_loss_whole_t_alpha', 'alpha', 60),
+                            ('ctc_loss_whole_t_beta_grad', 'beta_grad', 83)):
+        ms, plain_ms, bound, bound_by, lib_ms, err = records[0][key]
+        kernels.append(dict(name=name, route='cuda',
+                            source='convasr_tpu_torch/csrc/ctc_loss_whole_t.cu',
+                            replaces=f'convasr_tpu/ops/ctc_pallas.py:{line}',
+                            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
     return kernels
 
 

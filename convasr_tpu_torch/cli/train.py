@@ -1,7 +1,8 @@
 """Training CLI of the port (counterpart of convasr_tpu/cli/train.py):
 epochs or a number of iterations over bucketed batches, validation with
-greedy decoding and error analytics, checkpoints, resume, and a checkpoint on
-SIGTERM.
+greedy or beam-search decoding (--decoder, decode/factory.py; oracle error
+rates over the top --decoder-topk hypotheses of the host beam) and error
+analytics, checkpoints, resume, and a checkpoint on SIGTERM.
 
     python -m convasr_tpu_torch.cli.train --train-data-path train.json \
         --val-data-path val.json --experiment-id run1
@@ -10,9 +11,9 @@ Runs on one card (--device cuda, the default) and raises if there is none;
 --device cpu runs the plain PyTorch versions of every kernel. The CTC loss of
 each step runs on the CUDA kernels of csrc/ctc_loss.cu. The flag names and
 defaults are the JAX CLI's; flags of parts not yet ported (several
-processes, the device cache, SpecAugment, the wav2vec frontend, beam
-decoders for validation, rematerialisation, BN adaptation, tensorboard,
-orbax and reference convasr .pt checkpoints) raise NotImplementedError.
+processes, the device cache, SpecAugment, the wav2vec frontend,
+rematerialisation, BN adaptation, tensorboard, orbax and reference convasr .pt
+checkpoints) raise NotImplementedError.
 
 Audio moves to the card as int16 by default (--device-transport), from pinned
 memory with non-blocking copies. Loss, grad norm and finiteness are read back
@@ -34,10 +35,11 @@ from ..data import transcripts
 from ..data.dataset import AudioTextDataset, frame_count_bucket_fn
 from ..data.loader import PrefetchLoader, prefetch_map
 from ..data.sampler import BucketingBatchSampler, MixingBatchSampler
+from ..decode.factory import build_decoder
 from ..decode.generators import GreedyCTCGenerator
 from ..frontend.logmel import LogFilterBankFrontend
 from ..infra.utils import set_random_seed, setup_logging
-from ..metrics import ErrorAnalyzer, ErrorTagger, WordTagger, quantiles
+from ..metrics import ErrorAnalyzer, ErrorTagger, WordTagger, cer as cer_fn, quantiles
 from ..models.zoo import create_model
 from ..text import ProcessingPipeline, Stemmer, TextPostprocessor
 from ..train import checkpoints as ckpt_lib
@@ -127,7 +129,7 @@ def check_ported(args):
         num_processes=(args.num_processes or args.world_size or 0) > 1,
         device_cache=args.device_cache, spec_augment=args.spec_augment,
         frontend=args.frontend == 'Wav2VecFrontend', frontend_checkpoint=args.frontend_checkpoint,
-        decoder=args.decoder != 'GreedyDecoder', remat=args.remat, adapt_bn=args.adapt_bn,
+        remat=args.remat, adapt_bn=args.adapt_bn,
         tensorboard=args.tensorboard, log_weight_histograms=args.log_weight_histograms,
         exphtml=args.exphtml, logits=args.logits, onnx=args.onnx,
         vis_errors_audio=args.vis_errors_audio, dump_model_config=args.dump_model_config,
@@ -175,10 +177,12 @@ def put_batch(batch, device):
 
 def evaluate_model(args, model, val_datasets, generator, text_pipelines, error_analyzer,
                    device, epoch=0, iteration=0, training=False):
-    """Greedy-decode validation + error analytics (spec: the reference
-    train.py:156-341), one process."""
+    """Validation (greedy, or the --decoder beam) + error analytics (spec:
+    the reference train.py:156-341), one process."""
     _print = logging.getLogger(_LOG).info
     eval_step = make_eval_step(model, bpe_only=args.bpe_only, forward_x_only=args.forward_x_only)
+    decoders = {p.name: build_decoder(args, p.tokenizer) for p in text_pipelines} \
+        if args.decoder != 'GreedyDecoder' else {}
     results = {}
     for name, dataset in val_datasets.items():
         _print(f'{name}@{iteration}: examples: {len(dataset)}')
@@ -192,12 +196,25 @@ def evaluate_model(args, model, val_datasets, generator, text_pipelines, error_a
                                                    device))
             loss, ent, unc = (metrics[k].cpu().numpy() for k in ('loss', 'entropy', 'uncertainty'))
             for pipeline, lp, olen in zip(text_pipelines, outputs['log_probs'], outputs['olen']):
-                lp, olen = lp.cpu().numpy(), olen.cpu().numpy()
-                gen = generator.generate(tokenizer=pipeline.tokenizer, log_probs=lp,
-                                         begin=np.zeros(len(lp)), end=np.zeros(len(lp)),
-                                         output_lengths=olen, time_stamps=None,
-                                         segment_text_key='hyp')
-                hyps = [transcripts.join(hyp=alts[0]) for alts in gen]
+                dec = decoders.get(pipeline.name)
+                if dec is None or not dec.on_device:
+                    # the device beams read the log-probs on the device
+                    lp, olen = lp.cpu().numpy(), olen.cpu().numpy()
+                if dec is None:
+                    gen = generator.generate(tokenizer=pipeline.tokenizer, log_probs=lp,
+                                             begin=np.zeros(len(lp)), end=np.zeros(len(lp)),
+                                             output_lengths=olen, time_stamps=None,
+                                             segment_text_key='hyp')
+                    hyps = [transcripts.join(hyp=alts[0]) for alts in gen]
+                elif dec.topk > 1:
+                    # oracle: the candidate with the lowest cer
+                    hyps = []
+                    for m, alts in zip(meta, dec.decode(lp, output_lengths=olen)):
+                        ref_pp = pipeline.postprocess(pipeline.preprocess(m['ref']))
+                        hyps.append(min(pipeline.decode(alts), key=lambda t: cer_fn(
+                            hyp=pipeline.postprocess(t), ref=ref_pp)))
+                else:
+                    hyps = pipeline.decode(dec.decode(lp, output_lengths=olen))
                 for k, (m, hyp) in enumerate(zip(meta, hyps)):
                     analyze_jobs.append((
                         hyp, pipeline.preprocess(m['ref']), pipeline.postprocess,
@@ -585,7 +602,19 @@ def build_parser():
     parser.add_argument('--decoder', default='GreedyDecoder',
                         choices=['GreedyDecoder', 'BeamSearchDecoder', 'BeamSearchDecoderDevice',
                                  'BeamSearchDecoderDeviceLM'],
-                        help='only GreedyDecoder is ported yet')
+                        help='validation decoder')
+    parser.add_argument('--decoder-topk', type=int, default=1,
+                        help='oracle error rates over top-k beam hypotheses')
+    parser.add_argument('--lm', default=None, help='ARPA LM for the beam decoders')
+    parser.add_argument('--beam-width', type=int, default=32)
+    parser.add_argument('--beam-alpha', type=float, default=0.4)
+    parser.add_argument('--beam-beta', type=float, default=1.0)
+    parser.add_argument('--beam-cutoff-top-n', type=int, default=16)
+    parser.add_argument('--beam-rescore', action='store_true',
+                        help='with --decoder BeamSearchDecoder --lm: rescore the top complete '
+                             'hypotheses with the word LM instead of fusing it per frame')
+    parser.add_argument('--beam-max-len', type=int, default=0,
+                        help='hybrid-decoder hypothesis-buffer cap (0 = frames+1, exact)')
     parser.add_argument('--onnx', default=None, help='not yet ported')
     parser.add_argument('--vis-errors-audio', action='store_true', help='not yet ported')
     parser.add_argument('--dump-model-config', action='store_true', help='not yet ported')

@@ -1,7 +1,7 @@
 """Batch/dir transcription CLI of the port (counterpart of
-convasr_tpu/cli/transcribe.py): greedy decoding, optional forced alignment of
-the reference text (--align, on the CUDA Viterbi kernel), json/txt/csv
-outputs.
+convasr_tpu/cli/transcribe.py): greedy or beam-search decoding, optional
+forced alignment of the reference text (--align, on the CUDA Viterbi kernel),
+json/txt/csv outputs.
 
     python -m convasr_tpu_torch.cli.transcribe --checkpoint model.pt \
         -i audio_or_dir_or_transcript.json -o out --output-json --align
@@ -10,8 +10,14 @@ Runs on the card (--device cuda, the default) and raises if there is none;
 --device cpu runs the plain PyTorch versions of every kernel. --quantize int8
 calibrates activation scales on the first --calibration-batches items (or
 reads --calibration-cache) and then runs every forward as int8 PTQ inference
-(models/quantized.py) on the int8 conv and GEMM kernels. Flags that the JAX
-CLI has and the port has not reached yet raise NotImplementedError.
+(models/quantized.py) on the int8 conv and GEMM kernels. --decoder picks the
+beam decoders of decode/factory.py: BeamSearchDecoderDevice (the beam on the
+card, with an optional char-bigram --lm fused there), BeamSearchDecoderDeviceLM
+(its top --beam-width hypotheses rescored with a word --lm on the host) or
+BeamSearchDecoder (the host C++ beam, word --lm fused or, with --beam-rescore,
+rescored). The device beams take the log-probs where the model left them.
+Flags that the JAX CLI has and the port has not reached yet raise
+NotImplementedError.
 """
 import argparse
 import collections
@@ -25,6 +31,7 @@ import torch
 from ..data import transcripts
 from ..data.dataset import AudioTextDataset
 from ..data.loader import prefetch_map
+from ..decode.factory import build_decoder
 from ..decode.generators import GreedyCTCGenerator
 from ..frontend.logmel import LogFilterBankFrontend
 from ..metrics import cer as cer_fn
@@ -60,7 +67,6 @@ def ckpt_model_overrides(ckpt_args: dict) -> dict:
 def check_ported(args):
     """Flags outside the port's first slice fail loudly instead of being ignored."""
     unported = dict(
-        decoder=args.decoder != 'GreedyDecoder',
         vad=args.vad is not None, diarize=args.diarize, data_parallel=args.data_parallel,
         output_html=args.output_html, logits=args.logits, align_words=args.align_words,
         frontend=args.frontend == 'Wav2VecFrontend')
@@ -151,7 +157,8 @@ def setup(args):
 
     forward.calibrate, forward.fused, forward.fused_i16 = calibrate, fused, fused_i16
     generator = GreedyCTCGenerator(blank_amount_to_space=args.replace_blank_series)
-    return text_pipeline, frontend, model, forward, generator
+    decoder = build_decoder(args, text_pipeline.tokenizer)
+    return text_pipeline, frontend, model, forward, generator, decoder
 
 
 def main(args, ext_json=('.json', '.json.gz')):
@@ -172,7 +179,7 @@ def main(args, ext_json=('.json', '.json.gz')):
     data_paths = [p for p in data_paths
                   if exclude is None or os.path.basename(p) not in exclude]
 
-    text_pipeline, frontend, model, forward, generator = setup(args)
+    text_pipeline, frontend, model, forward, generator, decoder = setup(args)
 
     # --profile-phases: cumulative wall seconds per pipeline phase; worker
     # phases (getitem/collate/dispatch) overlap the consumer's
@@ -223,7 +230,7 @@ def main(args, ext_json=('.json', '.json.gz')):
         collated = _timed('collate', dataset.collate_fn, item)
         _, _, x, xlen, _, _ = collated
         dev = None
-        if x.size and not args.align:
+        if x.size and decoder is None and not args.align:
             try:
                 def dispatch():
                     if args.device_transport == 'int16':
@@ -265,9 +272,13 @@ def main(args, ext_json=('.json', '.json.gz')):
             else:
                 log_probs_dev, _, olen_dev = forward(torch.from_numpy(x[:, 0, :]),
                                                      torch.from_numpy(xlen))
-                log_probs, olen = log_probs_dev.cpu().numpy(), olen_dev.cpu().numpy()
+                # the device beams read the log-probs on the device; the
+                # greedy generator and the host beam read them on the host
+                on_device = getattr(decoder, 'on_device', False)
+                log_probs = None if on_device else log_probs_dev.cpu().numpy()
+                olen = olen_dev.cpu().numpy()
                 most_probable_idx = None
-                n_frames = log_probs.shape[1]
+                n_frames = log_probs_dev.shape[1]
         except torch.cuda.OutOfMemoryError as e:
             print(f'Skipping {i}/{len(dataset)} [{audio_path}] after OOM: {e}')
             continue
@@ -282,11 +293,23 @@ def main(args, ext_json=('.json', '.json.gz')):
                               ref=text_pipeline.postprocess(
                                   text_pipeline.preprocess(meta[k]['ref'])))]
                         for k in range(len(meta))]
-        hyp_segments = [alts[0] for alts in _timed(
-            'decode_host', generator.generate,
-            tokenizer=text_pipeline.tokenizer, log_probs=log_probs, begin=begin,
-            end=end, output_lengths=olen, time_stamps=ts, segment_text_key='hyp',
-            segment_extra_info=extra, most_probable_idx=most_probable_idx)]
+        if decoder is not None:
+            # beam search: one segment per utterance spanning its [begin, end]
+            decoded = _timed('decode_beam', decoder.decode,
+                             log_probs_dev if on_device else log_probs,
+                             output_lengths=olen_dev if on_device else olen)
+            hyp_segments = []
+            for k, tokens in enumerate(decoded):
+                tokens = tokens if args.decoder_topk == 1 else tokens[0]
+                text = text_pipeline.decode([tokens])[0]
+                hyp_segments.append([transcripts.Segment(
+                    begin=float(begin[k]), end=float(end[k]), hyp=text, **extra[k])])
+        else:
+            hyp_segments = [alts[0] for alts in _timed(
+                'decode_host', generator.generate,
+                tokenizer=text_pipeline.tokenizer, log_probs=log_probs, begin=begin,
+                end=end, output_lengths=olen, time_stamps=ts, segment_text_key='hyp',
+                segment_extra_info=extra, most_probable_idx=most_probable_idx)]
         hyp_segments = [transcripts.map_text(text_pipeline.postprocess, hyp=h)
                         for h in hyp_segments]
         hyp = '\n'.join(transcripts.join(hyp=h) for h in hyp_segments).strip()
@@ -304,7 +327,7 @@ def main(args, ext_json=('.json', '.json.gz')):
                 torch.from_numpy(ylen[:, 0]).to(device),
                 blank=text_pipeline.tokenizer.eps_id).cpu().numpy())
             aligned_ts = np.take_along_axis(ts, alignment, axis=1)
-            onehot = np.eye(log_probs.shape[-1], dtype=np.float32)[y[:, 0, :]]
+            onehot = np.eye(log_probs_dev.shape[-1], dtype=np.float32)[y[:, 0, :]]
             ref_segments = [alts[0] for alts in generator.generate(
                 tokenizer=text_pipeline.tokenizer, log_probs=onehot, begin=begin, end=end,
                 output_lengths=ylen[:, 0], time_stamps=aligned_ts,
@@ -424,8 +447,20 @@ def build_parser():
     parser.add_argument('--audio-backend', default=None, choices=[None, 'sox', 'ffmpeg'])
     parser.add_argument('--decoder', default='GreedyDecoder',
                         choices=['GreedyDecoder', 'BeamSearchDecoder',
-                                 'BeamSearchDecoderDevice', 'BeamSearchDecoderDeviceLM'],
-                        help='only GreedyDecoder is ported yet')
+                                 'BeamSearchDecoderDevice', 'BeamSearchDecoderDeviceLM'])
+    parser.add_argument('--beam-cutoff-top-n', type=int, default=8)
+    parser.add_argument('--decoder-topk', type=int, default=1)
+    parser.add_argument('--beam-width', type=int, default=5000,
+                        help='the JAX CLI\'s default; the device beams want ~16')
+    parser.add_argument('--beam-alpha', type=float, default=0.3)
+    parser.add_argument('--beam-beta', type=float, default=1.0)
+    parser.add_argument('--lm', help='ARPA (.arpa, .arpa.gz) or CNLM binary LM: a char '
+                        'bigram for BeamSearchDecoderDevice, a word LM for the others')
+    parser.add_argument('--beam-rescore', action='store_true',
+                        help='with --decoder BeamSearchDecoder --lm: rescore the top complete '
+                             'hypotheses with the word LM instead of fusing it per frame')
+    parser.add_argument('--beam-max-len', type=int, default=0,
+                        help='hybrid-decoder hypothesis-buffer cap (0 = frames+1, exact)')
     parser.add_argument('--align', action='store_true')
     parser.add_argument('--logits', action='store_true', help='not yet ported')
     parser.add_argument('--normalize-signal', default=True,

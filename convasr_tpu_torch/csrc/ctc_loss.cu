@@ -54,45 +54,9 @@
 // version to float32 rounding of a sum of at most L+1 terms in [0, 1], not bit
 // for bit (ops/ctc_loss.py states the tolerance). More rows per block, a warp
 // per row and TMA staging are later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define NEG_INF (-1e30f)
+#include "ctc_lattice.cuh"
 
 namespace {
-
-__device__ __forceinline__ float lse3(float a, float b, float c) {
-  const float m = fmaxf(fmaxf(a, b), c);
-  if (m <= NEG_INF / 2) return NEG_INF;
-  return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
-}
-
-// Per-thread lattice description: the class of each owned state, whether it
-// lies inside the row's own lattice (s < 2*ylen+1), and its skip flag; in the
-// backward pass the skip flag of state s+2 instead.
-template <int K>
-struct Lattice {
-  int ext[K];
-  unsigned row_bits = 0, skip_bits = 0;
-
-  __device__ void load(const int* tg, int S, int C, int blank, int yl, int tid, int nt,
-                       bool skip_of_next2) {
-    const int s_row = 2 * yl + 1;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int s = tid + k * nt;
-      ext[k] = blank;
-      if (s < S && (s & 1)) ext[k] = min(max(tg[s >> 1], 0), C - 1);
-      if (s < s_row) row_bits |= 1u << k;
-      // skip of state q (q odd, q >= 3): its label differs from that of q-2
-      const int q = skip_of_next2 ? s + 2 : s;
-      if (q < S && (q & 1) && q >= 3) {
-        const int lab = min(max(tg[q >> 1], 0), C - 1);
-        if (lab != min(max(tg[(q >> 1) - 1], 0), C - 1)) skip_bits |= 1u << k;
-      }
-    }
-  }
-};
 
 // K = states owned by each thread (S <= K * blockDim.x). The launch bound caps
 // registers at 64 a thread so that 1024 threads fit an SM's 65,536.
@@ -274,12 +238,6 @@ ctc_beta_grad(const float* __restrict__ log_probs, const int* __restrict__ targe
 
 size_t shared_bytes(int S, int C) { return (size_t)(2 * S + 2 * C) * sizeof(float); }
 
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int K>
 cudaError_t launch_alpha(const float* log_probs, const int* targets, const int* input_lengths,
                          const int* target_lengths, int B, int T, int C, int L, int blank,
@@ -307,15 +265,6 @@ cudaError_t launch_beta_grad(const float* log_probs, const int* targets,
   return cudaGetLastError();
 }
 
-// threads a block and states a thread for a lattice of S states
-int block_threads(int S) { return min((S + 31) / 32 * 32, 1024); }
-int states_per_thread(int S) {
-  const int per = (S + block_threads(S) - 1) / block_threads(S);
-  for (int k = 1; k <= 32; k *= 2)
-    if (per <= k) return k;
-  return 0;
-}
-
 }  // namespace
 
 // Launches the forward pass on `stream`; returns the CUDA error code
@@ -329,15 +278,10 @@ extern "C" int ctc_loss_alpha(const float* log_probs, const int* targets,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int S = 2 * L + 1;
   const int threads = block_threads(S);
-  switch (states_per_thread(S)) {
-    case 1: return launch_alpha<1>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    case 2: return launch_alpha<2>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    case 4: return launch_alpha<4>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    case 8: return launch_alpha<8>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    case 16: return launch_alpha<16>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    case 32: return launch_alpha<32>(log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll, threads, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_states_per_thread(S, [&](auto k) {
+    return launch_alpha<decltype(k)::value>(log_probs, targets, input_lengths, target_lengths,
+                                            B, T, C, L, blank, alpha, ll, threads, stream);
+  });
 }
 
 // Launches the backward pass on `stream`; returns the CUDA error code.
@@ -352,13 +296,9 @@ extern "C" int ctc_loss_beta_grad(const float* log_probs, const int* targets,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int S = 2 * L + 1;
   const int threads = block_threads(S);
-  switch (states_per_thread(S)) {
-    case 1: return launch_beta_grad<1>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    case 2: return launch_beta_grad<2>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    case 4: return launch_beta_grad<4>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    case 8: return launch_beta_grad<8>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    case 16: return launch_beta_grad<16>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    case 32: return launch_beta_grad<32>(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, B, T, C, L, blank, grad, threads, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_states_per_thread(S, [&](auto k) {
+    return launch_beta_grad<decltype(k)::value>(log_probs, targets, input_lengths,
+                                                target_lengths, alpha, ll, g, B, T, C, L,
+                                                blank, grad, threads, stream);
+  });
 }

@@ -76,9 +76,14 @@ def _final_ll(last, target_lengths):
                        m + torch.log(torch.exp(a1 - m) + torch.exp(a2 - m)))
 
 
-def alpha_plain(log_probs, targets, input_lengths, target_lengths, blank: int):
+def alpha_plain(log_probs, targets, input_lengths, target_lengths, blank: int,
+                take_frame0: bool = False):
     """The alpha kernel in plain PyTorch -> (alpha (B, T, 2L+1), ll (B,)),
-    float32. Frames past xlen repeat the last alpha."""
+    float32. Frames past xlen repeat the last alpha.
+
+    take_frame0: frame 0 starts every row, even one with xlen = 0, whose ll
+    then comes from frame 0 (the whole-T kernel's rule, ops/ctc_loss_whole_t.py);
+    by default such a row keeps -1e30 (this module's kernels)."""
     B, T, C = log_probs.shape
     L = targets.shape[1]
     S = 2 * L + 1
@@ -95,7 +100,8 @@ def alpha_plain(log_probs, targets, input_lengths, target_lengths, blank: int):
     alpha = torch.full((B, T, S), NEG_INF, dtype=torch.float32, device=lp.device)
     if T == 0:
         return alpha, torch.full((B,), NEG_INF, device=lp.device)
-    a = torch.where((states[None, :] <= 1) & (xlen > 0)[:, None], emissions(0), neg)
+    a = torch.where((states[None, :] <= 1) & ((xlen > 0) | take_frame0)[:, None], emissions(0),
+                    neg)
     alpha[:, 0] = a
     for t in range(1, T):
         prev2 = torch.where(skip, _shift(a, 2), neg)

@@ -244,3 +244,92 @@ def test_int8_forward_on_card_matches_cpu(card):
     assert int8.CONV_LAUNCHES == before[0] + 32 and int8.GEMM_WHOLE_K_LAUNCHES == before[1] + 12
     np.testing.assert_allclose(on_card.numpy(), cpu.numpy(), rtol=0, atol=1e-3)
     assert (on_card.argmax(-1) == cpu.argmax(-1)).float().mean() >= 0.99
+
+
+# --- whole-T CTC loss kernels K2f/K2b (csrc/ctc_loss_whole_t.cu) -----------
+
+WHOLE_T_CASES = dict(
+    base=dict(seed=40),                                        # ragged xlen and ylen
+    odd_rows=dict(seed=41, B=3, T=19),                         # rows not 16-byte aligned
+    zero_input_length=dict(seed=42, B=3, T=24, zero_xlen_row=True),
+    infeasible_row=dict(seed=43, B=4, T=28, L=6, infeasible_row=True),
+    non_last_blank=dict(seed=44, B=4, T=26, C=9, L=6, blank=0),
+    repeated_labels=dict(seed=45, B=6, T=40, C=5, L=8, repeated=True),
+    many_states=dict(seed=46, B=3, T=120, C=40, L=700),        # 1401 states: 2 per thread
+    guard_edge=dict(seed=47, B=2, T=1521, C=38, L=60),         # the largest T that fits
+)
+
+
+@pytest.mark.parametrize('case', WHOLE_T_CASES)
+def test_whole_t_kernels_equal_plain(card, case):
+    from convasr_tpu_torch.ops import ctc_loss, ctc_loss_whole_t as k2
+    lp, y, xlen, ylen, blank = loss_batch(**WHOLE_T_CASES[case])
+    if case == 'zero_input_length':               # also a row of xlen 0 that takes frame 0
+        xlen[0], ylen[0] = 0, 1
+    g = torch.from_numpy(np.random.RandomState(2).uniform(0.5, 1.5, lp.shape[0]).astype(np.float32))
+    alpha, ll = k2.alpha_whole_t_plain(lp, y, xlen, ylen, blank)
+    grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
+    on_card = [t.to(card) for t in (lp, y, xlen, ylen)]
+    before = (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES)
+    k_alpha, k_ll = k2.alpha_kernel(*on_card, blank)
+    k_grad = k2.beta_grad_kernel(*on_card, k_alpha, k_ll, g.to(card), blank)
+    torch.cuda.synchronize()
+    assert (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    feasible = ll > -5e29
+    assert torch.equal(k_ll.cpu() > -5e29, feasible)
+    if case == 'zero_input_length':
+        assert feasible[0] and feasible[-1]       # frame 0 gives rows of xlen 0 an ll
+    np.testing.assert_allclose(k_alpha.cpu().numpy(), alpha.numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(k_ll.cpu()[feasible].numpy(), ll[feasible].numpy(), rtol=1e-5)
+    # gamma in [0, 1] summed per class with shared-memory atomics in any order
+    np.testing.assert_allclose(k_grad.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
+    assert (k_grad.cpu()[~feasible | (xlen == 0)] == 0).all()
+
+
+def test_whole_t_guard_raises_on_the_card(card):
+    from convasr_tpu_torch.ops import ctc_loss_whole_t as k2
+    lp, y, xlen, ylen, blank = loss_batch(seed=48, B=1, T=1522, C=38, L=60)
+    assert not k2.smem_fits(1522, 60, 38)
+    before = k2.ALPHA_LAUNCHES
+    with pytest.raises(ValueError, match='shared memory'):
+        k2.ctc_loss_whole_t(*(t.to(card) for t in (lp, y, xlen, ylen)))
+    assert k2.ALPHA_LAUNCHES == before
+
+
+def test_ctc_loss_whole_t_runs_both_kernels(card):
+    from convasr_tpu_torch.ops import ctc_loss_whole_t as k2
+    lp, y, xlen, ylen, blank = loss_batch(seed=49, B=5, T=33, zero_xlen_row=True)
+    x = lp.to(card).requires_grad_()
+    before = (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES)
+    loss = k2.ctc_loss_whole_t(x, *(t.to(card) for t in (y, xlen, ylen)), blank=blank)
+    loss.mean().backward()            # an expanded (stride 0) cotangent
+    torch.cuda.synchronize()
+    assert (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    x_cpu = lp.clone().requires_grad_()
+    ref = k2.ctc_loss_whole_t(x_cpu, y, xlen, ylen, blank=blank)
+    ref.mean().backward()
+    assert torch.isfinite(ref).all()  # the row of xlen 0 and ylen 0 takes frame 0's blank
+    np.testing.assert_allclose(loss.detach().cpu().numpy(), ref.detach().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(x.grad.cpu().numpy(), x_cpu.grad.numpy(), rtol=1e-3, atol=1e-4)
+
+
+# --- device beam (ops/beam_device.py) on the card against the CPU ----------
+
+@pytest.mark.parametrize('with_lm', [False, True], ids=['no_lm', 'char_bigram'])
+def test_device_beam_on_card_equals_cpu(card, with_lm):
+    """Tokens and lengths bit-equal, scores within 1e-4: the same float32
+    operations; expf/logf of the card and of the CPU differ in the last bit."""
+    from convasr_tpu_torch.ops import beam_device
+    rng = np.random.RandomState(50)
+    B, T, C = 4, 60, 38
+    lp = torch.log_softmax(torch.from_numpy(rng.randn(B, T, C).astype(np.float32) * 3), -1)
+    lengths = torch.tensor([60, 41, 60, 7])
+    kw = dict(beam_width=16, cutoff_top_n=8, max_len=T + 1)
+    if with_lm:
+        kw.update(lm_table=torch.from_numpy(rng.randn(C, C - 1).astype(np.float32) - 3),
+                  lm_alpha=0.5, lm_beta=0.2)
+    cpu = beam_device.beam_search_device(lp, lengths, C - 1, **kw)
+    on_card = beam_device.beam_search_device(lp.to(card), lengths.to(card), C - 1, **kw)
+    assert all(t.is_cuda for t in on_card)
+    assert torch.equal(on_card[0].cpu(), cpu[0]) and torch.equal(on_card[1].cpu(), cpu[1])
+    np.testing.assert_allclose(on_card[2].cpu().numpy(), cpu[2].numpy(), rtol=0, atol=1e-4)

@@ -16,7 +16,11 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'convasr_tpu'))
 print(len(names), 'modules;', 'forbidden:', bad)
 assert len(names) >= 20 and not bad
-assert {'convasr_tpu_torch.models.quantized', 'convasr_tpu_torch.ops.int8'} <= set(names)
+assert {'convasr_tpu_torch.models.quantized', 'convasr_tpu_torch.ops.int8',
+        'convasr_tpu_torch.ops.ctc_loss_whole_t', 'convasr_tpu_torch.ops.beam_device',
+        'convasr_tpu_torch.decode.beam', 'convasr_tpu_torch.decode.factory',
+        'convasr_tpu_torch.native.build', 'convasr_tpu_torch.text.ngram_lm',
+        'convasr_tpu_torch.text.binlm'} <= set(names)
 '''
 
 

@@ -1,6 +1,7 @@
 """The port's train CLI on the CPU: the smoke run of the JAX CLI's tests
 (JasperNetSmall, 16 features, a synthetic corpus made with numpy), exact
-resume, a checkpoint on SIGTERM, unported flags."""
+resume, a checkpoint on SIGTERM, validation with the beam decoders, unported
+flags."""
 import json
 import os
 import pathlib
@@ -121,8 +122,41 @@ def test_sigterm_saves_a_checkpoint(corpus, tmp_path, monkeypatch):
         assert torch.equal(value, ours['model_state_dict'][name]), name
 
 
+@pytest.mark.parametrize('decoder', [['BeamSearchDecoderDevice'],
+                                     ['BeamSearchDecoder', '--decoder-topk', '2']],
+                         ids=['device_beam', 'host_beam_oracle_top2'])
+def test_validation_with_a_beam_decoder(corpus, tmp_path, monkeypatch, decoder):
+    """Validation decodes with --decoder: the device beam on the log-probs
+    where the model left them, or the host C++ beam with oracle error rates
+    over its top 2 hypotheses."""
+    from convasr_tpu_torch.cli import train
+    from convasr_tpu_torch.decode import beam
+    from convasr_tpu_torch.ops import beam_device
+    calls = []
+    if decoder[0] == 'BeamSearchDecoderDevice':
+        search = beam_device.beam_search_device
+
+        def spy(log_probs, *a, **kw):
+            calls.append(torch.is_tensor(log_probs))
+            return search(log_probs, *a, **kw)
+        monkeypatch.setattr(beam_device, 'beam_search_device', spy)
+    else:
+        decode_one = beam.BeamSearchDecoder.decode_one
+
+        def spy(self, *a, **kw):
+            hyps = decode_one(self, *a, **kw)
+            calls.append(len(hyps) == 2)
+            return hyps
+        monkeypatch.setattr(beam.BeamSearchDecoder, 'decode_one', spy)
+    train.main(make_args(corpus, tmp_path, '--iterations', '2', '--val-iteration-interval', '2',
+                         '--decoder', *decoder, '--beam-width', '4'))
+    assert calls and all(calls), calls
+    lines = log_lines(tmp_path)
+    assert any('WER:' in l and 'CER:' in l for l in lines), lines
+
+
 @pytest.mark.parametrize('flag', [['--spec-augment'], ['--device-cache'], ['--remat'],
-                                  ['--decoder', 'BeamSearchDecoder'], ['--num-processes', '2']])
+                                  ['--adapt-bn'], ['--num-processes', '2']])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     from convasr_tpu_torch.cli import train
     with pytest.raises(NotImplementedError, match='not yet ported'):

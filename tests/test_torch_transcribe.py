@@ -1,6 +1,8 @@
 """The port's transcribe CLI against the JAX package's: the same wav and
 reference JSON, the JAX CLI on an orbax checkpoint and the port's CLI on the
-weights carried across, both on the CPU in float32."""
+weights carried across, both on the CPU in float32. Under the beam decoders
+the JAX CLI runs its Python beam (its native library set to None), the port
+its C++ one, on LMs trained from the references."""
 import json
 import os
 import pathlib
@@ -54,6 +56,9 @@ def checkpoints_and_audio(tmp_path_factory):
     with open(ref_json, 'w') as f:
         json.dump([dict(audio_path=wav_path, ref=r, begin=float(k), end=k + 0.9)
                    for k, r in enumerate(REFS)], f, ensure_ascii=False)
+    from convasr_tpu_torch.text.ngram_lm import char_tokenize, save_arpa, train_ngram_lm
+    save_arpa(train_ngram_lm([char_tokenize(r) for r in REFS], order=2), str(tmp / 'char2.arpa'))
+    save_arpa(train_ngram_lm([r.split() for r in REFS], order=3), str(tmp / 'word3.arpa'))
     return jax_ckpt, torch_ckpt, ref_json, tmp
 
 
@@ -112,14 +117,25 @@ def run(package, ckpt, ref_json, out_dir, extra):
         return json.load(f)
 
 
-@pytest.mark.parametrize('extra', [['--align'], [], ['--quantize', 'int8'],
-                                   ['--quantize', 'int8', '--align']],
-                         ids=['align', 'fused_int16', 'int8', 'int8_align'])
-def test_port_cli_matches_jax_cli(checkpoints_and_audio, extra, capsys):
+BEAM = ['--beam-width', '8', '--beam-alpha', '0.5', '--lm']
+
+
+@pytest.mark.parametrize('extra', [
+    ['--align'], [], ['--quantize', 'int8'], ['--quantize', 'int8', '--align'],
+    ['--decoder', 'BeamSearchDecoderDevice'] + BEAM + ['char2.arpa'],
+    ['--decoder', 'BeamSearchDecoderDeviceLM'] + BEAM + ['word3.arpa'],
+    ['--decoder', 'BeamSearchDecoder'] + BEAM + ['word3.arpa']],
+    ids=['align', 'fused_int16', 'int8', 'int8_align', 'beam_device_char_lm',
+         'beam_device_word_lm_rescore', 'beam_host_word_lm'])
+def test_port_cli_matches_jax_cli(checkpoints_and_audio, extra, capsys, monkeypatch):
     """Under --quantize int8 both CLIs read one activation-scales cache,
     written by the JAX run's calibration."""
+    import convasr_tpu.decode.beam as jax_beam
     jax_ckpt, torch_ckpt, ref_json, tmp = checkpoints_and_audio
-    name = '_'.join(extra) or 'fused'
+    name = '_'.join(extra[:2]) or 'fused'
+    if '--lm' in extra:
+        extra = extra[:-1] + [str(tmp / extra[-1])]
+        monkeypatch.setitem(jax_beam._lib_cache, 'lib', None)
     if '--quantize' in extra:
         extra = extra + ['--calibration-cache', str(tmp / f'act_scales_{name}.npz')]
     ref = run('jax', jax_ckpt, ref_json, str(tmp / f'jax_{name}'), extra)
@@ -152,8 +168,7 @@ def test_dual_head_pipeline_matches_jax(dual_head_checkpoints, pipeline):
 def test_unported_flag_raises(checkpoints_and_audio):
     _, torch_ckpt, ref_json, tmp = checkpoints_and_audio
     with pytest.raises(NotImplementedError, match='not yet ported'):
-        run('torch', torch_ckpt, ref_json, str(tmp / 'beam'),
-            ['--decoder', 'BeamSearchDecoder'])
+        run('torch', torch_ckpt, ref_json, str(tmp / 'vad'), ['--vad', '2'])
 
 
 def test_cuda_default_raises_without_card(checkpoints_and_audio, monkeypatch):
