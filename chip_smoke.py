@@ -31,14 +31,21 @@
 8. transcribe --quantize int8 --align: the port's `cli/transcribe.main` on
    CUDA over the corpus of phase 2, on the checkpoint of phase 2, calibrating
    on one batch into a fresh activation-scales cache; the launch counts are
-   set to 0 just before and read just after, and the int8 conv, both int8
-   GEMM variants and the alignment kernel must have launched;
+   set to 0 just before and read just after: the wgmma int8 conv must have
+   launched 32 times a batch, the mma.sync conv loop never, the conv
+   weights packed once (32 packs for the run), and both int8 GEMM variants
+   and the alignment kernel must have launched;
 9. kernels: the int8 conv and GEMM kernels against their plain versions
    (float64 on the card, exact) on inputs the int8 run gave them and at the
    TPU probes' shapes: results bit-equal, times by CUDA events, the bound
    (int8 operations over 1,979 TOPS or bytes over 3.35 TB/s), and as library
    yardsticks torch._int_mm for the GEMMs (where its shape rules allow) and
-   cuDNN's bf16 F.conv1d at the conv's shape; the port calls neither;
+   cuDNN's bf16 F.conv1d at the conv's shape; the port calls neither. The
+   wgmma conv is timed beside the mma.sync loop at block 10's and the
+   probe's shape, and must beat the loop at both; then each of the 32 path
+   convs of a batch, on its captured inputs, beside the mma.sync loop and
+   bf16 cuDNN (CUDA events), and the two kernels' own time per conv with
+   every launch queued before the first runs, with the sums;
 10. check: the int8 JasperNetBig forward on the card against the same
    quantized tree on the CPU on a short input, and its agreement with the
    float32 model;
@@ -102,6 +109,27 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps):
+    """The card's own time for one call of fn: as cuda_ms, but the stream is
+    held by a spin kernel until the host has queued all `reps` calls, so the
+    wrapper's host work between launches is not in the time. None if the
+    spin ended before the last call was queued, four times over."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for attempt in range(4):
+        torch.cuda._sleep(10_000_000 << attempt)     # ~5 ms of clock cycles, doubled each try
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(stop) / reps
+    return None
 
 
 def viterbi_bound_ms(log_probs, targets, xlen):
@@ -653,7 +681,7 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     # 8. transcribe --quantize int8 --align at full JasperNetBig width
     cache = WORK / 'act_scales.npz'
     cache.unlink(missing_ok=True)
-    seen, captured = {}, {}
+    seen, captured, path_convs = {}, {}, []
     setup, conv_kernel, gemm_kernel = transcribe.setup, int8.int8_conv1d, int8.int8_matmul
 
     def spy_setup(args):
@@ -681,10 +709,12 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         seen['calibrate_forward_s'] = time.perf_counter() - tic
         return out
 
-    def spy_conv(x, w, *a):
+    def spy_conv(x, w, *a, **kw):
+        if len(path_convs) < 32:                               # the first batch's 32 convs
+            path_convs.append((x.clone(), w, a, kw))
         if tuple(w.shape) == (25, 640, 768):                   # block 10's convs
-            captured.setdefault('conv', (x.clone(), w.clone(), a))
-        return conv_kernel(x, w, *a)
+            captured.setdefault('conv', (x.clone(), w, a, kw))
+        return conv_kernel(x, w, *a, **kw)
 
     def spy_gemm(a, b):
         K, N = b.shape
@@ -702,6 +732,7 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
          '--quantize', 'int8', '--calibration-batches', '1', '--calibration-cache', str(cache),
          '--output-json', '--output-csv', '--mono', '--profile-phases'])
     int8.CONV_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
+    int8.CONV_MMA_SYNC_LAUNCHES = int8.CONV_WEIGHT_PACKS = 0
     align.KERNEL_LAUNCHES = 0
     torch.cuda.synchronize()
     tic = time.perf_counter()
@@ -712,16 +743,23 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         transcribe.setup, int8.int8_conv1d, int8.int8_matmul = setup, conv_kernel, gemm_kernel
         quantized.calibrate = calibrate_forward
     wall = time.perf_counter() - tic
-    launches = dict(int8_conv=int8.CONV_LAUNCHES, int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
+    launches = dict(int8_conv_wgmma=int8.CONV_LAUNCHES,
+                    int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
                     int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES,
                     ctc_viterbi_align=align.KERNEL_LAUNCHES)
+    mma_sync_launches, packs = int8.CONV_MMA_SYNC_LAUNCHES, int8.CONV_WEIGHT_PACKS
     assert all(n > 0 for n in launches.values()), f'a kernel of the path never ran: {launches}'
     batches = launches['ctc_viterbi_align']
-    # per batch: 32 convs with taps; 8 whole-K GEMMs (block1.res0, the fused
-    # residual GEMMs of blocks 2-6, the one-tap epilogue block, the head) and
-    # 4 K-tiled ones (the fused residual GEMMs of blocks 7-10)
-    assert launches == dict(int8_conv=32 * batches, int8_gemm_whole_k=8 * batches,
+    # per batch: 32 convs with taps, all on the wgmma kernel; 8 whole-K GEMMs
+    # (block1.res0, the fused residual GEMMs of blocks 2-6, the one-tap
+    # epilogue block, the head) and 4 K-tiled ones (blocks 7-10's fused
+    # residual GEMMs); the conv weights packed once, when the tree went to the card
+    assert launches == dict(int8_conv_wgmma=32 * batches, int8_gemm_whole_k=8 * batches,
                             int8_gemm_k_tiled=4 * batches, ctc_viterbi_align=batches), launches
+    assert mma_sync_launches == 0, f'the mma.sync conv loop ran {mma_sync_launches} times'
+    assert packs == 32, f'{packs} conv weight packs in the run (32: once per tree)'
+    assert len(path_convs) == 32 and all(kw.get('w_packed') is not None
+                                         for _, _, _, kw in path_convs)
     outputs = sorted(os.listdir(out_dir))
     assert 'transcripts.csv' in outputs and sum(o.endswith('.json') for o in outputs) == 2, outputs
     segments = [s for o in outputs if o.endswith('.json')
@@ -743,15 +781,16 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         f'{audio_seconds / decode:.1f} audio-seconds/s (phase 2, bf16: {bf16_run["wall"]:.2f} s '
         f'wall = {audio_seconds / bf16_run["wall"]:.1f} audio-s/s, without setup '
         f'{bf16_run["decode"]:.2f} s = {audio_seconds / bf16_run["decode"]:.1f} audio-s/s); '
-        f'launches {launches}; {len(scales)} activation scales cached; '
-        f'{len(segments)} segments written')
+        f'launches {launches}, mma.sync conv loop {mma_sync_launches}, conv weight packs '
+        f'{packs}; {len(scales)} activation scales cached; {len(segments)} segments written')
 
     # where an int8 forward's card time goes, at the path's batch shape
     signal = torch.from_numpy(np.stack([speechlike(np.random.RandomState(20 + k), 6 * SR)
                                         for k in range(8)]).astype(np.float32))
 
     def classify(name):
-        return ('int8 conv' if 'int8_conv' in name else
+        return ('int8 conv (wgmma)' if 'int8_conv_wgmma' in name else
+                'int8 conv (mma.sync loop)' if 'int8_conv' in name else
                 'int8 GEMM whole-K' if 'int8_gemm_whole_k' in name else
                 'int8 GEMM K-tiled' if 'int8_gemm_k_tiled' in name else
                 'cuDNN/cuBLAS (frontend)' if any(k in name for k in (
@@ -766,26 +805,47 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     def seeded(*shape):
         return torch.from_numpy(rng.randint(-127, 128, size=shape).astype(np.int8)).to(device)
 
-    def conv_case(label, x, w, stride=1, dilation=1):
-        got = conv_kernel(x, w, stride, dilation)
+    def conv_bound(x, w, T_out, stride):
+        B, _, Cin = x.shape
+        K, _, Cout = w.shape
+        ops = 2 * B * T_out * Cout * K * Cin
+        return (ops, *int8_bound_ms(ops, x.numel() + w.numel() + 4 * B * T_out * Cout))
+
+    def cudnn_ms(x, w, stride, dilation, reps, timer=cuda_ms):
+        """bf16 cuDNN F.conv1d at the conv's shape (a yardstick, not int8)."""
+        K = w.shape[0]
+        xb = x.transpose(1, 2).to(torch.bfloat16).contiguous()
+        wb = w.permute(2, 1, 0).to(torch.bfloat16).contiguous()
+        return timer(lambda: F.conv1d(xb, wb, stride=stride, padding=dilation * K // 2,
+                                      dilation=dilation), reps=reps)
+
+    def conv_case(label, x, w, stride=1, dilation=1, w_packed=None):
+        w_packed = int8.pack_conv_weight(w) if w_packed is None else w_packed
+        got = conv_kernel(x, w, stride, dilation, w_packed=w_packed)
         ref = int8.int8_conv1d_plain(x, w, stride, dilation)
+        loop = int8._int8_conv1d_mma_sync(x, w, stride, dilation)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), f'int8_conv [{label}]: differs from the plain version'
+        assert torch.equal(loop, ref), f'int8_conv mma.sync [{label}]: differs from the plain'
         B, T, Cin = x.shape
         K, _, Cout = w.shape
         reps = 20 if B * T < 10000 else 5
-        ms = cuda_ms(lambda: conv_kernel(x, w, stride, dilation), reps=reps)
+        # the wgmma kernel, the mma.sync loop, the wgmma kernel again
+        ms = cuda_ms(lambda: conv_kernel(x, w, stride, dilation, w_packed=w_packed), reps=reps)
+        loop_ms = cuda_ms(lambda: int8._int8_conv1d_mma_sync(x, w, stride, dilation),
+                          reps=reps)
+        ms2 = cuda_ms(lambda: conv_kernel(x, w, stride, dilation, w_packed=w_packed), reps=reps)
         plain_ms = cuda_ms(lambda: int8.int8_conv1d_plain(x, w, stride, dilation), reps=2)
-        xb = x.transpose(1, 2).to(torch.bfloat16).contiguous()
-        wb = w.permute(2, 1, 0).to(torch.bfloat16).contiguous()
-        lib_ms = cuda_ms(lambda: F.conv1d(xb, wb, stride=stride, padding=dilation * K // 2,
-                                          dilation=dilation), reps=reps)
-        ops = 2 * B * got.shape[1] * Cout * K * Cin
-        bound, bound_by = int8_bound_ms(ops, x.numel() + w.numel() + 4 * got.numel())
-        log(f'int8_conv [{label}] B={B} T={T} {Cin}->{Cout} K={K} stride={stride}: bit-equal; '
-            f'kernel {ms:.4f} ms = {ops / ms / 1e9:.1f} TOPS, plain (float64) {plain_ms:.2f} ms, '
-            f'bound {bound:.5f} ms ({bound_by}); bf16 cuDNN F.conv1d (yardstick, not int8) '
-            f'{lib_ms:.4f} ms')
+        lib_ms = cudnn_ms(x, w, stride, dilation, reps)
+        ops, bound, bound_by = conv_bound(x, w, got.shape[1], stride)
+        bn = int8.wgmma_conv_bn(B, got.shape[1], Cout)
+        log(f'int8_conv [{label}] B={B} T={T} {Cin}->{Cout} K={K} stride={stride}: bit-equal '
+            f'(both kernels); wgmma (BM 128 BN {bn}) {ms:.4f} / {ms2:.4f} ms = '
+            f'{ops / ms / 1e9:.1f} TOPS; mma.sync loop {loop_ms:.4f} ms; plain (float64) '
+            f'{plain_ms:.2f} ms; bound {bound:.5f} ms ({bound_by}); bf16 cuDNN F.conv1d '
+            f'(yardstick, not int8) {lib_ms:.4f} ms')
+        assert max(ms, ms2) < loop_ms, \
+            f'int8_conv [{label}]: the wgmma kernel is not faster than the mma.sync loop'
         return ms, plain_ms, bound, bound_by, lib_ms, float((got - ref).abs().max())
 
     def gemm_case(label, a, b):
@@ -809,9 +869,10 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
             f'ms ({bound_by}); {lib_note}')
         return ms, plain_ms, bound, bound_by, lib_ms, float((got - ref).abs().max())
 
-    x, w, (stride, dilation, _) = captured['conv']
+    x, w, (stride, dilation, _), kw = captured['conv']
     records = dict(
-        int8_conv=[conv_case('path block10 K25 640->768', x, w, stride, dilation),
+        int8_conv_wgmma=[conv_case('path block10 K25 640->768', x, w, stride, dilation,
+                                   kw['w_packed']),
                    conv_case('probe B256 T304 768->768 K25', seeded(256, 304, 768),
                              seeded(25, 768, 768))],
         int8_gemm_whole_k=[gemm_case('path block6 fused residuals', *captured['whole_k']),
@@ -820,7 +881,7 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
                                      seeded(1792, 4096))],
         int8_gemm_k_tiled=[gemm_case('path block10 fused residuals', *captured['k_tiled']),
                            gemm_case('probe 4096^3', seeded(4096, 4096), seeded(4096, 4096))])
-    sources = dict(int8_conv=('int8_conv.cu', 'scripts/int8_conv_probe.py:47'),
+    sources = dict(int8_conv_wgmma=('int8_conv.cu', 'scripts/int8_conv_probe.py:47'),
                    int8_gemm_whole_k=('int8_gemm.cu', 'scripts/int8_probe.py:55'),
                    int8_gemm_k_tiled=('int8_gemm.cu', 'scripts/int8_probe.py:75'))
     kernels = []
@@ -830,6 +891,48 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
                             replaces=replaces, launches=launches[name], max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                             library_ms=lib_ms))
+
+    # each of the 32 path convs of a batch on its captured inputs, the two conv
+    # kernels and bf16 cuDNN by CUDA events, and the two kernels' own time
+    # with all launches queued ahead (queued_ms: without the wrappers' host work)
+    def path_conv_args(a):
+        return (list(a) + [1, 1])[:2]
+
+    def loop_call(x, w, a):
+        return int8._int8_conv1d_mma_sync(x, w, *path_conv_args(a))
+
+    def dev(ms):
+        return 'not measured' if ms is None else f'{ms:.4f} ms'
+
+    sums = dict(wgmma=0.0, mma_sync=0.0, cudnn=0.0, bound=0.0, ops=0)
+    device_sums = dict(wgmma=0.0, mma_sync=0.0, cudnn=0.0)
+    for i, (x, w, a, kw) in enumerate(path_convs):
+        stride, dilation = path_conv_args(a)
+        ms = cuda_ms(lambda: conv_kernel(x, w, *a, **kw), reps=10)
+        loop_ms = cuda_ms(lambda: loop_call(x, w, a), reps=10)
+        own = dict(wgmma=queued_ms(lambda: conv_kernel(x, w, *a, **kw), reps=10),
+                   mma_sync=queued_ms(lambda: loop_call(x, w, a), reps=10),
+                   cudnn=cudnn_ms(x, w, stride, dilation, reps=10, timer=queued_ms))
+        for key, v in own.items():
+            device_sums[key] = None if v is None or device_sums[key] is None else \
+                device_sums[key] + v
+        lib_ms = cudnn_ms(x, w, stride, dilation, reps=10)
+        T_out = int8.conv_output_length(x.shape[1], w.shape[0], stride, dilation)
+        ops, bound, _ = conv_bound(x, w, T_out, stride)
+        for key, v in (('wgmma', ms), ('mma_sync', loop_ms), ('cudnn', lib_ms),
+                       ('bound', bound), ('ops', ops)):
+            sums[key] += v
+        log(f'int8_conv path conv {i:2d}: B={x.shape[0]} T={x.shape[1]} {x.shape[2]}->'
+            f'{w.shape[2]} K={w.shape[0]} stride={stride}: wgmma {ms:.4f} ms = '
+            f'{ops / ms / 1e9:.1f} TOPS (queued {dev(own["wgmma"])}), mma.sync loop '
+            f'{loop_ms:.4f} ms (queued {dev(own["mma_sync"])}), bf16 cuDNN {lib_ms:.4f} ms '
+            f'(queued {dev(own["cudnn"])}), bound {bound:.5f} ms')
+    log(f'int8_conv: the 32 path convs of a batch: wgmma {sums["wgmma"]:.3f} ms '
+        f'({sums["ops"] / sums["wgmma"] / 1e9:.1f} TOPS; queued {dev(device_sums["wgmma"])}), '
+        f'mma.sync loop {sums["mma_sync"]:.3f} ms (queued {dev(device_sums["mma_sync"])}), '
+        f'bf16 cuDNN {sums["cudnn"]:.3f} ms (queued {dev(device_sums["cudnn"])}), '
+        f'bound {sums["bound"]:.4f} ms, '
+        f'{sums["ops"] / 1e9:.1f} G int8 operations')
 
     # 10. the int8 forward on the card against the same quantized tree on the CPU
     qtree = quantized.quantize(cpu_model, None, act_scales=scales)
@@ -907,7 +1010,9 @@ def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
                     ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES,
                     ctc_loss_whole_t_alpha=ctc_loss_whole_t.ALPHA_LAUNCHES,
                     ctc_loss_whole_t_beta_grad=ctc_loss_whole_t.BETA_GRAD_LAUNCHES,
-                    int8_conv=int8.CONV_LAUNCHES, int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
+                    int8_conv_wgmma=int8.CONV_LAUNCHES,
+                    int8_conv_mma_sync=int8.CONV_MMA_SYNC_LAUNCHES,
+                    int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
                     int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES)
 
     first_call = None
@@ -923,6 +1028,7 @@ def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
             align.KERNEL_LAUNCHES = ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
             ctc_loss_whole_t.ALPHA_LAUNCHES = ctc_loss_whole_t.BETA_GRAD_LAUNCHES = 0
             int8.CONV_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
+            int8.CONV_MMA_SYNC_LAUNCHES = 0
             torch.cuda.synchronize()
             tic = time.perf_counter()
             transcribe.main(args)

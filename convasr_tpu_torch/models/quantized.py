@@ -15,8 +15,11 @@ Scheme (standard PTQ, cf. Jacob et al. 2017), as in the JAX package:
 Tensors are channels-last, (B, T, C), and weights (K, Cin, Cout), the JAX
 package's layouts, so activation-scale caches and `.qtree.npz` trees pass
 between the two packages both ways; `build_folded_layers` transposes the
-port's (Cout, Cin, K) conv weights once. Weight quantization runs in numpy, as
-in the JAX package, so the int8 weights are bit-equal to its. Separable
+port's (Cout, Cin, K) conv weights once. On the card a tree also holds each
+conv weight with taps packed as (K, Cout, Cin) ('wqp', the wgmma conv
+kernel's layout), made once by `to_device`; `save_qtree` leaves it out.
+Weight quantization runs in numpy, as in the JAX package, so the int8
+weights are bit-equal to its. Separable
 models keep their depthwise halves in float32 (`F.conv1d`). `_forward` runs
 in three modes: collect (a `_Recorder`), int8 (act scales given) and plain
 folded float32, the oracle of the tests. Float32 convolutions run with
@@ -36,23 +39,24 @@ import torch.nn.functional as F
 
 from ..frontend.logmel import compute_output_lengths, full_fp32, masked_instance_norm, \
     temporal_mask
-from ..ops.int8 import int8_conv1d_auto, int8_matmul_auto
+from ..ops.int8 import int8_conv1d_auto, int8_matmul_auto, pack_conv_weight
 from .jasper import apply_nonlinearity, check_xlen
 
 BN_EPS = 1e-5
 
 
-def _conv1d(x, w, stride=1, dilation=1, groups=1, out_dtype=torch.float32):
+def _conv1d(x, w, stride=1, dilation=1, groups=1, out_dtype=torch.float32, w_packed=None):
     """Channels-last 1-D conv with the reference padding (pad = dilation * K // 2
     on both ends). x (B, T, Cin), w (K, Cin/groups, Cout). With out_dtype int32
     both are int8: one-tap convs (stride 1, groups 1) go to `int8_matmul` on
-    (B*T, Cin) x (Cin, Cout), all others to `int8_conv1d`."""
+    (B*T, Cin) x (Cin, Cout), all others to `int8_conv1d` (with w_packed, w
+    as (K, Cout, Cin), where the tree has it)."""
     K = w.shape[0]
     if out_dtype == torch.int32:
         if K == 1 and stride == 1 and groups == 1:
             B, T, C = x.shape
             return int8_matmul_auto(x.reshape(B * T, C), w[0]).reshape(B, T, -1)
-        return int8_conv1d_auto(x, w, stride, dilation, groups)
+        return int8_conv1d_auto(x, w, stride, dilation, groups, w_packed=w_packed)
     y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), stride=stride,
                  padding=dilation * K // 2, dilation=dilation, groups=groups)
     return y.transpose(1, 2)
@@ -176,9 +180,18 @@ def _features(model, x, xlen):
 def to_device(tree, device):
     """The same nested dict with every array leaf a tensor on `device` (a
     no-op for leaves already there): a quantized tree is put on the card once,
-    as the JAX CLI device_puts it."""
+    as the JAX CLI device_puts it. On a CUDA device every int8 conv weight
+    with taps, 'wq' (K > 1, Cin, Cout), gains 'wqp' = pack_conv_weight(wq),
+    unless the tree has it already: weights are packed once per tree, never
+    per call."""
+    device = torch.device(device)
     if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
+        out = {k: to_device(v, device) for k, v in tree.items()}
+        wq = out.get('wq')
+        if device.type == 'cuda' and wq is not None and wq.ndim == 3 and wq.shape[0] > 1 \
+                and 'wqp' not in out:
+            out['wqp'] = pack_conv_weight(wq)
+        return out
     if torch.is_tensor(tree):
         return tree.to(device)
     return torch.as_tensor(np.array(tree), device=device)
@@ -203,7 +216,8 @@ def _forward(model, layers, x, xlen, act_scales=None, recorder=None,
     def conv(name, t, t_scale, stride=1, dilation=1, groups=1):
         L = layers[name]
         if quant:
-            y = _conv1d(t, L['wq'], stride, dilation, groups, out_dtype=torch.int32)
+            y = _conv1d(t, L['wq'], stride, dilation, groups, out_dtype=torch.int32,
+                        w_packed=L.get('wqp'))
             return (y.to(epilogue_dtype) * (t_scale * L['sw']).to(epilogue_dtype)
                     + L['b'].to(epilogue_dtype))
         return _conv1d(t, L['w'], stride, dilation, groups) + L['b']
@@ -441,9 +455,9 @@ def _flatten(tree, prefix=()):
 def save_qtree(path, qtree):
     """Persist a quantized tree as one flat .npz with '/'-joined keys
     ('layers/block1.conv0/wq', 'act_scales/features', ...), the JAX
-    package's format."""
+    package's format. Packed conv weights ('wqp', card-only) are left out."""
     np.savez(path, **{'/'.join(p): np.asarray(v.cpu() if torch.is_tensor(v) else v)
-                      for p, v in _flatten(qtree)})
+                      for p, v in _flatten(qtree) if p[-1] != 'wqp'})
 
 
 def load_qtree(path):

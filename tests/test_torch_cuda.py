@@ -158,27 +158,93 @@ INT8_CONV_CASES = dict(
     epilogue_k29=dict(B=8, T=301, Cin=768, Cout=896, K=29),
     overflow_edge=dict(B=1, T=70, Cin=768, Cout=8, K=29, full=True),
     dilation2=dict(B=2, T=77, Cin=32, Cout=40, K=11, dilation=2),
-    ragged=dict(B=3, T=37, Cin=13, Cout=6, K=11),                       # byte loads
+    ragged=dict(B=3, T=37, Cin=13, Cout=6, K=11),                       # the mma.sync loop
     ragged_cout=dict(B=2, T=45, Cin=48, Cout=38, K=5, stride=2),
     t_shorter_than_k=dict(B=2, T=9, Cin=16, Cout=16, K=29),
+    # the wgmma kernel's edges: BM = 128 output rows, BN 128 or 192, 128-channel chunks
+    t_out_127=dict(B=2, T=127, Cin=128, Cout=128, K=11),
+    t_out_128=dict(B=2, T=128, Cin=128, Cout=192, K=13),
+    t_out_129=dict(B=3, T=129, Cin=256, Cout=136, K=11),
+    halo_past_both_ends_k29=dict(B=2, T=20, Cin=256, Cout=200, K=29),
+    batch_1=dict(B=1, T=301, Cin=256, Cout=384, K=13),
+    batch_9=dict(B=9, T=150, Cin=384, Cout=512, K=17),
+    cout_896=dict(B=2, T=260, Cin=512, Cout=896, K=21),
+    cout_38=dict(B=3, T=140, Cin=640, Cout=38, K=25),
+    cin_16=dict(B=2, T=200, Cin=16, Cout=64, K=11),
+    cin_48=dict(B=2, T=131, Cin=48, Cout=128, K=13),
+    cin_640_k1=dict(B=2, T=257, Cin=640, Cout=96, K=1),
+    stride2_odd_t=dict(B=3, T=257, Cin=64, Cout=256, K=11, stride=2),
+    stride2_dilation2=dict(B=2, T=300, Cin=128, Cout=64, K=13, stride=2, dilation=2),
+    dilation2_k29=dict(B=2, T=200, Cin=128, Cout=128, K=29, dilation=2),
+    overflow_edge_wide=dict(B=2, T=140, Cin=768, Cout=200, K=29, full=True),
+    stride3_mma_sync=dict(B=2, T=50, Cin=32, Cout=16, K=5, stride=3),
 )
+# one case per distinct (K, Cin, Cout, stride) of the 32 convs with taps of
+# JasperNetBig's int8 path, at its batch of 8 six-second segments
+PATH_CONVS = [(11, 64, 256, 2), (11, 256, 256, 1), (13, 256, 256, 1), (13, 256, 384, 1),
+              (13, 384, 384, 1), (17, 384, 384, 1), (17, 384, 512, 1), (17, 512, 512, 1),
+              (21, 512, 512, 1), (21, 512, 640, 1), (21, 640, 640, 1), (25, 640, 640, 1),
+              (25, 640, 768, 1), (25, 768, 768, 1), (29, 768, 896, 1)]
+INT8_CONV_CASES.update({f'path_k{K}_{Cin}_{Cout}_s{s}': dict(B=8, T=601 if s == 2 else 301,
+                                                             Cin=Cin, Cout=Cout, K=K, stride=s)
+                        for K, Cin, Cout, s in PATH_CONVS})
+
+
+def conv_case_tensors(case, card):
+    c = dict(INT8_CONV_CASES[case])
+    x, w = int8_tensors(sorted(INT8_CONV_CASES).index(case), (c['B'], c['T'], c['Cin']),
+                        (c['K'], c['Cin'], c['Cout']), full=c.get('full', False))
+    return x.to(card), w.to(card), c.get('stride', 1), c.get('dilation', 1)
 
 
 @pytest.mark.parametrize('case', INT8_CONV_CASES)
 def test_int8_conv_kernel_equals_plain(card, case):
+    """Bit-equal to the float64 plain version; the counters say which kernel
+    ran, as the shape rule says."""
     from convasr_tpu_torch.ops import int8
-    c = dict(INT8_CONV_CASES[case])
-    stride, dilation = c.pop('stride', 1), c.pop('dilation', 1)
-    x, w = int8_tensors(sorted(INT8_CONV_CASES).index(case), (c['B'], c['T'], c['Cin']),
-                        (c['K'], c['Cin'], c['Cout']), full=c.get('full', False))
-    x, w = x.to(card), w.to(card)
-    before = int8.CONV_LAUNCHES
+    x, w, stride, dilation = conv_case_tensors(case, card)
+    K, Cin, _ = w.shape
+    wgmma = int8.wgmma_conv_fits(x.shape[1], Cin, K, stride, dilation)
+    assert wgmma == bool(int8._conv_library().int8_conv1d_wgmma_fits(x.shape[1], Cin, K, stride,
+                                                                     dilation))
+    assert wgmma == (case not in ('ragged', 'stride3_mma_sync'))
+    before = (int8.CONV_LAUNCHES, int8.CONV_MMA_SYNC_LAUNCHES)
     got = int8.int8_conv1d(x, w, stride, dilation)
     want = int8.int8_conv1d_plain(x, w, stride, dilation)
     torch.cuda.synchronize()
-    assert int8.CONV_LAUNCHES == before + 1
+    assert (int8.CONV_LAUNCHES, int8.CONV_MMA_SYNC_LAUNCHES) == \
+        (before[0] + wgmma, before[1] + (not wgmma))
     assert got.shape == want.shape and got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('case', ['prologue', 'block10_k25', 'epilogue_k29', 't_out_129',
+                                  'cout_38', 'cin_48', 'stride2_dilation2', 'overflow_edge_wide'])
+def test_int8_conv_mma_sync_loop_past_the_rule_equals_plain(card, case):
+    """The mma.sync loop on shapes the rule gives the wgmma kernel (as
+    chip_smoke.py times it), on the packed weight and on the JAX layout;
+    it counts no launch."""
+    from convasr_tpu_torch.ops import int8
+    x, w, stride, dilation = conv_case_tensors(case, card)
+    packed = int8.pack_conv_weight(w)
+    want = int8.int8_conv1d_plain(x, w, stride, dilation)
+    before = (int8.CONV_LAUNCHES, int8.CONV_MMA_SYNC_LAUNCHES)
+    for got in (int8._int8_conv1d_mma_sync(x, None, stride, dilation, w_packed=packed),
+                int8._int8_conv1d_mma_sync(x, w, stride, dilation)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert (int8.CONV_LAUNCHES, int8.CONV_MMA_SYNC_LAUNCHES) == before
+
+
+def test_int8_conv_packed_weight_is_used_as_given(card):
+    from convasr_tpu_torch.ops import int8
+    x, w, stride, dilation = conv_case_tensors('batch_1', card)
+    packed = int8.pack_conv_weight(w)
+    packs = int8.CONV_WEIGHT_PACKS
+    got = int8.int8_conv1d_auto(x, None, stride, dilation, w_packed=packed)
+    assert int8.CONV_WEIGHT_PACKS == packs and torch.equal(got, int8.int8_conv1d_plain(x, w))
+    with pytest.raises(ValueError, match='not one weight'):
+        int8.int8_conv1d(x, w[:, :, :8].contiguous(), w_packed=packed)
 
 
 INT8_GEMM_CASES = dict(
@@ -238,10 +304,14 @@ def test_int8_forward_on_card_matches_cpu(card):
     qtree = quantized.quantize(model, [dict(x=x.numpy(), xlen=xlen.numpy())])
     cpu = quantized.quantized_apply(model, qtree, x, xlen)['log_probs'][0]
     model.to(card)
-    before = (int8.CONV_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES)
-    on_card = quantized.quantized_apply(model, quantized.to_device(qtree, card), x.to(card),
+    tree = quantized.to_device(qtree, card)     # packs the 32 conv weights once
+    before = (int8.CONV_LAUNCHES + int8.CONV_MMA_SYNC_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES,
+              int8.CONV_WEIGHT_PACKS)
+    on_card = quantized.quantized_apply(model, tree, x.to(card),
                                         xlen.to(card))['log_probs'][0].cpu()
-    assert int8.CONV_LAUNCHES == before[0] + 32 and int8.GEMM_WHOLE_K_LAUNCHES == before[1] + 12
+    # at base width 8 some convs have Cin 24 or 40 and take the mma.sync loop
+    assert int8.CONV_LAUNCHES + int8.CONV_MMA_SYNC_LAUNCHES == before[0] + 32
+    assert int8.GEMM_WHOLE_K_LAUNCHES == before[1] + 12 and int8.CONV_WEIGHT_PACKS == before[2]
     np.testing.assert_allclose(on_card.numpy(), cpu.numpy(), rtol=0, atol=1e-3)
     assert (on_card.argmax(-1) == cpu.argmax(-1)).float().mean() >= 0.99
 

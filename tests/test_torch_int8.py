@@ -153,3 +153,91 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     int8.int8_conv1d_auto(x, w)
     int8.int8_matmul_auto(x[0], w[0])
     assert (int8.CONV_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_K_TILED_LAUNCHES) == before
+
+
+@pytest.mark.parametrize('case', CONV_CASES)
+def test_plain_conv_on_packed_weights(case):
+    """pack_conv_weight gives (K, Cout, Cin), and the plain version reads it
+    as the same weight: bit-equal to the JAX-layout call and to JAX."""
+    c = CONV_CASES[case]
+    rng = np.random.RandomState(20 + sorted(CONV_CASES).index(case))
+    x = torch.from_numpy(random_int8(rng, c['B'], c['T'], c['Cin']))
+    w = torch.from_numpy(random_int8(rng, c['K'], c['Cin'], c['Cout']))
+    packs = int8.CONV_WEIGHT_PACKS
+    packed = int8.pack_conv_weight(w)
+    assert int8.CONV_WEIGHT_PACKS == packs + 1
+    assert packed.shape == (c['K'], c['Cout'], c['Cin']) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed.numpy(), w.numpy().transpose(0, 2, 1))
+    want = int8.int8_conv1d_plain(x, w, c['stride'], c['dilation'])
+    for got in (int8.int8_conv1d_plain(x, None, c['stride'], c['dilation'], w_packed=packed),
+                int8.int8_conv1d_auto(x, w, c['stride'], c['dilation'], w_packed=packed)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ref = jax_quantized._conv1d(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), c['stride'],
+                                c['dilation'], out_dtype=jnp.int32)
+    np.testing.assert_array_equal(want.numpy(), np.asarray(ref))
+
+
+def test_packed_weight_refusals():
+    x, w = cpu_pair()
+    with pytest.raises(ValueError, match='give w'):
+        int8.int8_conv1d_plain(x, None)
+    with pytest.raises(ValueError, match='not one weight'):
+        int8.int8_conv1d_plain(x, w, w_packed=torch.zeros((3, 4, 4), dtype=torch.int8))
+    with pytest.raises(ValueError, match='must be int8'):
+        int8.int8_conv1d_plain(x, None, w_packed=torch.zeros((3, 2, 4)))
+    with pytest.raises(ValueError, match=r'\(B, T, Cin\)'):
+        int8.int8_conv1d_plain(x, None, w_packed=torch.zeros((3, 2, 5), dtype=torch.int8))
+    with pytest.raises(ValueError, match='pack_conv_weight'):
+        int8.pack_conv_weight(w[0])
+    with pytest.raises(ValueError, match='takes CUDA tensors'):
+        int8.int8_conv1d(x, None, w_packed=int8.pack_conv_weight(w))
+
+
+# (T, Cin, K, stride, dilation) -> whether the wgmma kernel takes the shape
+RULE_CASES = [
+    ((301, 640, 25, 1, 1), True),          # block 10
+    ((601, 64, 11, 2, 1), True),           # the prologue at stride 2
+    ((301, 768, 29, 1, 1), True),          # the epilogue
+    ((9, 16, 29, 1, 1), True),             # T shorter than K: TMA fills the halo with zeros
+    ((257, 640, 1, 1, 1), True),           # one tap
+    ((37, 13, 11, 1, 1), False),           # Cin % 16: TMA needs 16-byte strides
+    ((50, 8, 5, 1, 1), False),             # Cin below one 16-byte piece
+    ((50, 32, 5, 3, 1), False),            # stride 3: one tensor map per parity, at most 2
+    ((1, 64, 11, 2, 1), False),            # a parity with no input time
+    ((200, 128, 29, 1, 4), True),          # halo 128 + 112 rows: one TMA box
+    ((200, 128, 29, 1, 5), False),         # halo 128 + 140 rows: past one box
+    ((300, 128, 29, 2, 8), True),          # stride 2 halves the halo
+]
+
+
+@pytest.mark.parametrize('shape,fits', RULE_CASES, ids=[str(c[0]) for c in RULE_CASES])
+def test_wgmma_shape_rule(shape, fits):
+    T, Cin, K, stride, dilation = shape
+    assert int8.wgmma_conv_fits(T, Cin, K, stride, dilation) == fits
+    if fits:
+        lo, R = int8._halo(K, stride, dilation)
+        assert R % 8 == 0 and R <= int8.WGMMA_MAX_HALO
+        # every tap's rows lie inside the halo
+        pad = dilation * K // 2
+        for k in range(K):
+            off = k * dilation - pad
+            j0 = (off - off % stride) // stride - lo
+            assert 0 <= j0 and j0 + int8.WGMMA_BM <= R
+
+
+def test_every_path_conv_takes_the_wgmma_kernel():
+    """The 32 convs with taps of JasperNetBig at full width (batch of 6 s
+    segments: 601 frames into the stride-2 prologue, 301 after it)."""
+    from convasr_tpu_torch.models.zoo import create_model
+    model = create_model('JasperNetBig', 64, (38,))
+    shapes = []
+    cin = 64
+    for block in model._block_plan()[:-1]:
+        kw = block['kwargs']
+        for _ in range(kw.get('repeat', 1)):
+            if kw['kernel_size'] > 1:
+                shapes.append((601 if kw.get('stride', 1) == 2 else 301, cin,
+                               kw['kernel_size'], kw.get('stride', 1), kw.get('dilation', 1)))
+            cin = kw['out_channels']
+    assert len(shapes) == 32
+    assert all(int8.wgmma_conv_fits(*s) for s in shapes)

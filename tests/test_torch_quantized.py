@@ -181,17 +181,66 @@ def test_int8_convs_route_to_conv_and_gemm(monkeypatch):
     the 29-tap epilogue) and 12 one-tap GEMMs (block1.res0, the fused residual
     GEMMs of blocks 2-10, the one-tap epilogue block, the head)."""
     _, _, model, x, xlen = build(*MODELS['JasperNetBig'])
-    calls = dict(conv=[], gemm=[])
-    conv, gemm = q.int8_conv1d_auto, q.int8_matmul_auto
-    monkeypatch.setattr(q, 'int8_conv1d_auto',
-                        lambda x_, w, *a: calls['conv'].append(tuple(w.shape)) or conv(x_, w, *a))
-    monkeypatch.setattr(q, 'int8_matmul_auto',
-                        lambda a_, b: calls['gemm'].append(tuple(b.shape)) or gemm(a_, b))
+    calls = route_calls(monkeypatch)
     q.quantized_apply(model, jax_qtree('JasperNetBig'), t(x), t(xlen))
     assert len(calls['conv']) == 32 and all(k > 1 for k, _, _ in calls['conv'])
+    assert calls['packed'] == [None] * 32      # a tree on the CPU is not packed
     assert len(calls['gemm']) == 12
     # base width 8: the deepest fused GEMM concatenates 4*16 + 2*24 + 2*32 + 2*40
     assert max(k for k, _ in calls['gemm']) == 256 and calls['gemm'][-1][1] == CLASSES
+
+
+def route_calls(monkeypatch):
+    """Stand-ins for the two int8 dispatchers of models/quantized.py that
+    record each call's weight shapes (and the packed conv weight's)."""
+    calls = dict(conv=[], packed=[], gemm=[])
+    conv, gemm = q.int8_conv1d_auto, q.int8_matmul_auto
+
+    def spy_conv(x_, w, *a, w_packed=None, **kw):
+        calls['conv'].append(tuple(w.shape))
+        calls['packed'].append(None if w_packed is None else tuple(w_packed.shape))
+        return conv(x_, w, *a, w_packed=w_packed, **kw)
+    monkeypatch.setattr(q, 'int8_conv1d_auto', spy_conv)
+    monkeypatch.setattr(q, 'int8_matmul_auto',
+                        lambda a_, b, *a, **kw: calls['gemm'].append(tuple(b.shape))
+                        or gemm(a_, b, *a, **kw))
+    return calls
+
+
+def packed_tree(qtree):
+    """The tree as `to_device` leaves it on the card, built on the CPU: every
+    int8 conv weight with taps also packed, 'wqp' = pack_conv_weight(wq)."""
+    from convasr_tpu_torch.ops.int8 import pack_conv_weight
+    tree = q.to_device(qtree, torch.device('cpu'))
+    for layer in tree['layers'].values():
+        if layer['wq'].ndim == 3 and layer['wq'].shape[0] > 1:
+            layer['wqp'] = pack_conv_weight(layer['wq'])
+    return tree
+
+
+def test_packed_tree_routes_packed_weights_once(monkeypatch):
+    """A tree as the card holds it carries every conv weight with taps also
+    as (K, Cout, Cin), packed once: the forward hands the packed weight to
+    each of the 32 convs and packs nothing. On the CPU `to_device` packs
+    nothing and keeps what a tree has."""
+    from convasr_tpu_torch.ops import int8
+    _, _, model, x, xlen = build(*MODELS['JasperNetBig'])
+    qtree = jax_qtree('JasperNetBig')
+    packs = int8.CONV_WEIGHT_PACKS
+    assert not any('wqp' in layer for layer in
+                   q.to_device(qtree, torch.device('cpu'))['layers'].values())
+    tree = packed_tree(qtree)
+    assert int8.CONV_WEIGHT_PACKS == packs + 32
+    assert q.to_device(tree, torch.device('cpu'))['layers']['block1.conv0']['wqp'] \
+        is tree['layers']['block1.conv0']['wqp']            # already packed: kept as it is
+    assert 'wqp' not in tree['layers']['block2.resfused'] and 'wqp' not in \
+        tree['layers']['decoder.head0']                     # one-tap products stay GEMMs
+    calls = route_calls(monkeypatch)
+    got = q.quantized_apply(model, tree, t(x), t(xlen))['log_probs'][0]
+    assert int8.CONV_WEIGHT_PACKS == packs + 32
+    assert [(k, n, c) for k, c, n in calls['conv']] == calls['packed']
+    want = q.quantized_apply(model, qtree, t(x), t(xlen))['log_probs'][0]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_int8_jits_and_scale_invariance():
@@ -290,6 +339,20 @@ def test_qtree_file_both_ways(tmp_path, writer):
     direct = q.quantized_apply(model, qtree, t(x), t(xlen))['log_probs'][0].numpy()
     np.testing.assert_array_equal(ours, direct)
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-3)   # as quantized_apply above
+
+
+def test_qtree_file_after_packing_matches_jax(tmp_path):
+    """A .qtree.npz written from a packed tree (as the card holds it) has the
+    JAX package's keys and arrays bit for bit: the packed weights stay out."""
+    qtree = jax_qtree('JasperNetBig')
+    ours, theirs = str(tmp_path / 'ours.qtree.npz'), str(tmp_path / 'theirs.qtree.npz')
+    q.save_qtree(ours, packed_tree(qtree))
+    jq.save_qtree(theirs, qtree)
+    with np.load(ours) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files) and not any('wqp' in k for k in a.files)
+        for k in b.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_int8_bpe_dual_head():
