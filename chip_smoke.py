@@ -26,10 +26,15 @@
    by kind and the card's idle share;
 6. kernels: the CTC loss kernels (forward, warp backward, block backward)
    against their plain versions on the card, on the inputs the train run gave
-   them and at two seeded shapes, with torch.nn.functional.ctc_loss timed
-   beside them as the library yardstick; the block kernel's route (a
-   lattice past the warp kernel's rule) through ctc_loss_auto, counted apart
-   (the kernels line gives every kernel its launches on the train path);
+   them and at two seeded shapes (the forward's alpha itself, its ll and
+   feasible set, at the path's ring depth and at each depth of the sweep),
+   with torch.nn.functional.ctc_loss timed beside them as the library
+   yardstick; the forward timed at each ring depth (2, 4, 8, 16, 32 frames,
+   in turns); the warp backward timed against the block one at S 321, 513, 769
+   and 1023 (B32 T500), where the route's crossover lies; the block kernel's
+   route (a lattice past the warp kernel's reach) through ctc_loss_auto,
+   counted apart (the kernels line gives every kernel its launches on the
+   train path);
 7. check: one float32 train step of JasperNetBig on the card against the
    same step on the CPU;
 8. transcribe --quantize int8 --align: the port's `cli/transcribe.main` on
@@ -37,8 +42,8 @@
    on one batch into a fresh activation-scales cache; the launch counts are
    set to 0 just before and read just after: the wgmma int8 conv must have
    launched 32 times a batch, the mma.sync conv loop never, the wgmma GEMM
-   8 times a batch, the mma.sync whole-K GEMM never, the K-tiled GEMM 4 times a
-   batch, the alignment kernel once, and the weights packed once per tree
+   12 times a batch (K 256-4096), the mma.sync whole-K and K-tiled GEMMs
+   never, the alignment kernel once, and the weights packed once per tree
    (32 conv packs; phase 10 counts the one-tap weights the GEMM rule takes);
 9. kernels: the int8 conv and GEMM kernels against their plain versions
    (float64 on the card, exact) on inputs the int8 run gave them and at the
@@ -47,11 +52,11 @@
    yardsticks torch._int_mm for the GEMMs (N padded to a multiple of 8) and
    cuDNN's bf16 F.conv1d at the conv's shape; the port calls neither. Every
    GEMM of a batch is held against the plain version; at each distinct path
-   GEMM shape, at M4096 K1792 N4096 and (a record for P2) at 4096^3 the wgmma
-   GEMM is timed beside the mma.sync kernel of that depth and torch._int_mm, by
-   events and queued; the whole-K kernel's route (K % 16 != 0) is driven
-   through int8_matmul_auto, counted apart (the kernels line gives every
-   kernel its launches on the int8 path of phase 8). The wgmma conv is timed beside the
+   GEMM shape, at M4096 K1792 N4096 and at 4096^3 the wgmma GEMM is timed
+   beside the mma.sync kernel of that depth and torch._int_mm, by events and
+   queued; the whole-K and K-tiled kernels' routes (K % 16 != 0: K 1000, K
+   1800) are driven through int8_matmul_auto, counted apart (the kernels line
+   gives every kernel its launches on the int8 path of phase 8). The wgmma conv is timed beside the
    mma.sync loop at block 10's and the probe's shape, and must beat the loop
    at both; then each of the 32 path convs of a batch, on its captured
    inputs, beside the mma.sync loop and bf16 cuDNN (CUDA events), and the
@@ -101,6 +106,7 @@ WORK = ROOT / 'build' / 'chip_smoke'
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12       # dense int8 on the tensor cores
+DEPTHS = (2, 4, 8, 16, 32)     # the CTC forward's ring depths, swept in phase 6
 SR = 8000
 WORDS = ('привет мир раз два три доброе утро город река солнце небо поле лес '
          'дорога окно стол книга время слово голос вода земля').split()
@@ -568,18 +574,28 @@ def train_phases(device):
     for label, (lp, y, xlen, ylen, blank, g) in cases:
         assert ctc_loss.beta_grad_warp_fits(y.shape[1], lp.shape[2]), label
         alpha, ll = ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank)
+        depth_alpha = {d: ctc_loss._alpha_depth(lp, y, xlen, ylen, blank, d) for d in DEPTHS}
         grad = ctc_loss.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank)   # the warp kernel
         block_grad = ctc_loss._beta_grad_route(lp, y, xlen, ylen, alpha, ll, g, blank, 'block')
         ref_alpha, ref_ll = ctc_loss.alpha_plain(lp, y, xlen, ylen, blank)
         ref_grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, ref_alpha, ref_ll, g, blank)
         torch.cuda.synchronize()
         feasible = ref_ll > -5e29
-        assert torch.equal(ll > -5e29, feasible), f'{label}: feasible rows differ'
+        # the forward at the path's depth and at each depth of the sweep: alpha
+        # itself, the feasible set and the feasible rows' ll
+        alpha_err = {}
+        for d, (a_d, ll_d) in [(ctc_loss.ALPHA_DEPTH, (alpha, ll))] + list(depth_alpha.items()):
+            assert torch.equal(ll_d > -5e29, feasible), f'{label} D{d}: feasible rows differ'
+            assert torch.allclose(a_d, ref_alpha, rtol=1e-5, atol=1e-3), \
+                f'{label} D{d}: alpha differs from the plain version'
+            d_err = float(((ll_d - ref_ll).abs() / ref_ll.abs().clamp(min=1))[feasible].max())
+            assert d_err < 1e-5, f'{label} D{d}: loss differs from the plain version by {d_err}'
+            assert bool((ll_d[xlen == 0] == -1e30).all()), f'{label} D{d}: a row with xlen 0'
+            alpha_err[d] = float((a_d - ref_alpha).abs().max())
         loss_err = float(((ll - ref_ll).abs() / ref_ll.abs().clamp(min=1))[feasible].max())
         loss_abs_err = float((ll - ref_ll).abs()[feasible].max())
         grad_err = float((grad - ref_grad).abs().max())
         block_err = float((block_grad - ref_grad).abs().max())
-        assert loss_err < 1e-5, f'{label}: loss differs from the plain version by {loss_err}'
         # gamma in [0, 1], summed per class (by the block kernel with shared-memory atomics)
         for name, got, err in (('warp', grad, grad_err), ('block', block_grad, block_err)):
             assert torch.allclose(got, ref_grad, rtol=1e-3, atol=1e-4), \
@@ -589,6 +605,19 @@ def train_phases(device):
         B, T, C = lp.shape
         L = y.shape[1]
         fwd_ms = cuda_ms(lambda: ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank), reps=20)
+        # the ring-depth sweep, in turns: each depth, four rounds
+        sweep = {d: [] for d in DEPTHS}
+        for _ in range(4):
+            for d in DEPTHS:
+                sweep[d].append(cuda_ms(lambda: ctc_loss._alpha_depth(lp, y, xlen, ylen, blank,
+                                                                      d), reps=20))
+        fastest = min(DEPTHS, key=lambda d: statistics.median(sweep[d]))
+        log(f'ctc_loss_alpha ring depths [{label}]: '
+            + ', '.join(f'D{d} {min(v):.4f}-{max(v):.4f} (median {statistics.median(v):.4f}) ms'
+                        for d, v in sweep.items())
+            + f'; the path\'s D{ctc_loss.ALPHA_DEPTH} {fwd_ms:.4f} ms; fastest by the median '
+            f'D{fastest}; alpha max abs err '
+            + ', '.join(f'D{d} {e:.2e}' for d, e in alpha_err.items()))
 
         def warp():
             return ctc_loss.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank)
@@ -623,7 +652,8 @@ def train_phases(device):
             torch.autograd.grad(out, leaf, g)
         lib_pair_ms = cuda_ms(lib_pair, reps=20)
         bounds = ctc_loss_bound_ms(xlen, B, T, C, L)
-        log(f'ctc_loss [{label}] B={B} T={T} C={C} L={L}: loss rel err {loss_err:.2e}, grad '
+        log(f'ctc_loss [{label}] B={B} T={T} C={C} L={L}: loss rel err {loss_err:.2e}, alpha '
+            f'max abs err {alpha_err[ctc_loss.ALPHA_DEPTH]:.2e}, grad '
             f'max abs err warp {grad_err:.2e}, block {block_err:.2e}; kernels fwd {fwd_ms:.4f} '
             f'ms, bwd warp {bwd_ms:.4f} / {bwd_ms2:.4f} ms, bwd block {block_ms:.4f} ms (warp faster: {max(bwd_ms, bwd_ms2) < block_ms}), pair '
             f'(fwd + warp bwd) {pair_ms:.4f} ms; plain fwd {plain_fwd_ms:.2f} ms, bwd '
@@ -637,6 +667,33 @@ def train_phases(device):
                                             lib_pair_ms, grad_err),
                             beta_grad=(block_ms, plain_bwd_ms, *bounds['beta_grad'], lib_pair_ms,
                                        block_err)))
+
+    # the backward's route: the warp kernel against the block kernel, in
+    # turns, at lattices between the train path's and the warp kernel's reach
+    # (B32 T500); the route sends to the warp kernel the lattices of at most
+    # WARP_S_MAX states, the largest S at which it won in every run
+    won = []
+    for L in (160, 256, 384, 511):
+        lp, y, xlen, ylen, blank, g = seeded(32, 500, L)
+        alpha, ll = ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank)
+        ref_grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
+        times = dict(warp=[], block=[])
+        for route in ('warp', 'block'):
+            got = ctc_loss._beta_grad_route(lp, y, xlen, ylen, alpha, ll, g, blank, route)
+            assert torch.allclose(got, ref_grad, rtol=1e-3, atol=1e-4), \
+                f'the {route} backward at L {L} differs by {float((got - ref_grad).abs().max())}'
+        for route in ('warp', 'block', 'warp', 'block'):
+            times[route].append(cuda_ms(lambda: ctc_loss._beta_grad_route(
+                lp, y, xlen, ylen, alpha, ll, g, blank, route), reps=20))
+        S = 2 * L + 1
+        if max(times['warp']) < min(times['block']):
+            won.append(S)
+        log(f'ctc_loss_beta_grad [B32 T500 L{L} S{S}]: warp '
+            f'{min(times["warp"]):.4f}-{max(times["warp"]):.4f} ms, block '
+            f'{min(times["block"]):.4f}-{max(times["block"]):.4f} ms (warp faster: '
+            f'{S in won}); route: {"warp" if ctc_loss.beta_grad_warp_fits(L, 38) else "block"}')
+    log(f'ctc_loss_beta_grad: the warp kernel faster at S {won} of 321, 513, 769, 1023; the '
+        f'route sends S <= {ctc_loss.WARP_S_MAX} to it')
 
     # the block kernel's route, through ctc_loss_auto: a lattice past the warp
     # kernel's rule (L 520, S 1041). A check of the route only: the kernels
@@ -796,25 +853,26 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     wall = time.perf_counter() - tic
     launches = dict(int8_conv_wgmma=int8.CONV_LAUNCHES,
                     int8_gemm_wgmma=int8.GEMM_WGMMA_LAUNCHES,
-                    int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES,
                     ctc_viterbi_align=align.KERNEL_LAUNCHES)
     mma_sync_launches, packs = int8.CONV_MMA_SYNC_LAUNCHES, int8.CONV_WEIGHT_PACKS
     whole_k_launches, gemm_packs = int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_WEIGHT_PACKS
+    k_tiled_launches = int8.GEMM_K_TILED_LAUNCHES
     assert all(n > 0 for n in launches.values()), f'a kernel of the path never ran: {launches}'
     batches = launches['ctc_viterbi_align']
-    # per batch: 32 convs with taps, all on the wgmma kernel; 8 wgmma GEMMs
-    # (block1.res0, the fused residual GEMMs of blocks 2-6, the one-tap
-    # epilogue block, the head) and 4 K-tiled ones (blocks 7-10's fused
-    # residual GEMMs, K > 1792); the weights packed once, when the tree went
-    # to the card (phase 10 counts the one-tap weights the GEMM rule takes)
-    assert launches == dict(int8_conv_wgmma=32 * batches, int8_gemm_wgmma=8 * batches,
-                            int8_gemm_k_tiled=4 * batches, ctc_viterbi_align=batches), launches
+    # per batch: 32 convs with taps, all on the wgmma kernel; 12 wgmma GEMMs
+    # (block1.res0, the fused residual GEMMs of blocks 2-10, K 512-4096, the
+    # one-tap epilogue block, the head); the weights packed once, when the
+    # tree went to the card (phase 10 counts the one-tap weights the GEMM rule
+    # takes)
+    assert launches == dict(int8_conv_wgmma=32 * batches, int8_gemm_wgmma=12 * batches,
+                            ctc_viterbi_align=batches), launches
     assert mma_sync_launches == 0, f'the mma.sync conv loop ran {mma_sync_launches} times'
     assert whole_k_launches == 0, f'the mma.sync whole-K GEMM ran {whole_k_launches} times'
+    assert k_tiled_launches == 0, f'the K-tiled GEMM ran {k_tiled_launches} times'
     assert packs == 32, f'{packs} conv weight packs in the run (32: once per tree)'
     assert len(path_convs) == 32 and all(kw.get('w_packed') is not None
                                          for _, _, _, kw in path_convs)
-    assert len(path_gemms) == 12 and [p is not None for _, _, p in path_gemms].count(True) == 8
+    assert len(path_gemms) == 12 and all(p is not None for _, _, p in path_gemms)
     outputs = sorted(os.listdir(out_dir))
     assert 'transcripts.csv' in outputs and sum(o.endswith('.json') for o in outputs) == 2, outputs
     segments = [s for o in outputs if o.endswith('.json')
@@ -837,7 +895,8 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         f'wall = {audio_seconds / bf16_run["wall"]:.1f} audio-s/s, without setup '
         f'{bf16_run["decode"]:.2f} s = {audio_seconds / bf16_run["decode"]:.1f} audio-s/s); '
         f'launches {launches}, mma.sync conv loop {mma_sync_launches}, mma.sync whole-K GEMM '
-        f'{whole_k_launches}, weight packs: conv {packs}, GEMM {gemm_packs}; {len(scales)} '
+        f'{whole_k_launches}, K-tiled GEMM {k_tiled_launches}, weight packs: conv {packs}, GEMM '
+        f'{gemm_packs}; {len(scales)} '
         f'activation scales cached; {len(segments)} segments written')
 
     # where an int8 forward's card time goes, at the path's batch shape
@@ -909,8 +968,8 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
         return 'not measured' if ms is None else f'{ms:.4f} ms'
 
     def gemm_case(label, a, b, b_packed=None):
-        """The wgmma GEMM (past P1's depth only as a record), the mma.sync kernel
-        of the route for that depth (whole-K or K-tiled) and torch._int_mm
+        """The wgmma GEMM, the mma.sync kernel for that depth (whole-K or
+        K-tiled, the routes of K % 16 != 0) and torch._int_mm
         (N padded to a multiple of 8) on one input: bit-equal to the float64
         plain version; CUDA events (wgmma, mma.sync, _int_mm, wgmma) and queued."""
         M, K = a.shape
@@ -958,40 +1017,50 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     log(f'int8_matmul: the 12 GEMMs of a batch bit-equal to the plain version; '
         f'{len(shapes)} distinct (K, N): {sorted(shapes)}')
     gemms = {(K, N): gemm_case(f'path K{K} N{N}', *shapes[(K, N)]) for K, N in sorted(shapes)}
-    sums = {key: sum(r['queued'][key] or float('nan') for (K, N), r in gemms.items()
-                     if K <= int8.WHOLE_K_MAX) for key in ('wgmma', 'old')}
-    log(f'int8_matmul: the 8 P1 GEMMs of a batch (K <= {int8.WHOLE_K_MAX}), queued: wgmma '
-        f'{sums["wgmma"]:.4f} ms, mma.sync whole-K {sums["old"]:.4f} ms')
+    for name, deep in (('P1', False), ('P2', True)):
+        sums = {key: sum(r['queued'][key] or float('nan') for (K, N), r in gemms.items()
+                         if (K > int8.WHOLE_K_MAX) == deep) for key in ('wgmma', 'old')}
+        count = sum((K > int8.WHOLE_K_MAX) == deep for K, N in gemms)
+        log(f'int8_matmul: the {count} {name} GEMMs of a batch (K {">" if deep else "<="} '
+            f'{int8.WHOLE_K_MAX}), queued: wgmma {sums["wgmma"]:.4f} ms, mma.sync '
+            f'{"K-tiled" if deep else "whole-K"} {sums["old"]:.4f} ms')
     probe = gemm_case('probe 4096x1792x4096', seeded(4096, 1792), seeded(1792, 4096))
-    gemm_case('P2 probe 4096^3 (a record for P2)', seeded(4096, 4096), seeded(4096, 4096))
-    block6 = gemms[(1792, 512)]
+    p2_probe = gemm_case('P2 probe 4096^3', seeded(4096, 4096), seeded(4096, 4096))
+    block6, block10 = gemms[(1792, 512)], gemms[(4096, 768)]
+    log(f'int8_matmul P2 route (wgmma) against the K-tiled kernel and torch._int_mm: block 10 '
+        f'by events {block10["ms"]["wgmma"]:.4f} vs {block10["ms"]["old"]:.4f} and '
+        f'{block10["ms"]["lib"]:.4f} ms, queued {dev(block10["queued"]["wgmma"])} vs '
+        f'{dev(block10["queued"]["old"])} and {dev(block10["queued"]["lib"])}; 4096^3 by events '
+        f'{p2_probe["ms"]["wgmma"]:.4f} vs {p2_probe["ms"]["old"]:.4f} and '
+        f'{p2_probe["ms"]["lib"]:.4f} ms, queued {dev(p2_probe["queued"]["wgmma"])} vs '
+        f'{dev(p2_probe["queued"]["old"])} and {dev(p2_probe["queued"]["lib"])}')
     log(f'int8_matmul wgmma against torch._int_mm: probe 4096x1792x4096 by events '
         f'{probe["ms"]["wgmma"]:.4f} vs {probe["ms"]["lib"]:.4f} ms (faster: '
         f'{probe["ms"]["wgmma"] < probe["ms"]["lib"]}); block 6 queued '
         f'{dev(block6["queued"]["wgmma"])} vs mma.sync {dev(block6["queued"]["old"])} and '
         f'_int_mm {dev(block6["queued"]["lib"])}')
 
-    # the mma.sync whole-K kernel's route, through int8_matmul_auto: K % 16 != 0.
-    # A check of the route only: the kernels line gives each kernel its
-    # launches on the int8 transcribe path (phase 8)
-    a, b = seeded(2408, 1000), seeded(1000, 38)
-    int8.GEMM_WGMMA_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
-    got = int8.int8_matmul_auto(a, b)
-    torch.cuda.synchronize()
-    whole_k_route = dict(int8_gemm_wgmma=int8.GEMM_WGMMA_LAUNCHES,
-                         int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
-                         int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES)
-    assert whole_k_route == dict(int8_gemm_wgmma=0, int8_gemm_whole_k=1, int8_gemm_k_tiled=0), \
-        whole_k_route
-    assert torch.equal(got, int8.int8_matmul_plain(a, b))
-    log(f'int8_matmul_auto at K 1000 (M 2408, N 38): launches {whole_k_route}, bit-equal')
+    # the mma.sync kernels' routes, through int8_matmul_auto: K % 16 != 0, up
+    # to WHOLE_K_MAX (whole-K) and past it (K-tiled). A check of the routes
+    # only: the kernels line gives each kernel its launches on the int8
+    # transcribe path (phase 8)
+    for K, N, route in ((1000, 38, 'int8_gemm_whole_k'), (1800, 768, 'int8_gemm_k_tiled')):
+        a, b = seeded(2408, K), seeded(K, N)
+        int8.GEMM_WGMMA_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
+        got = int8.int8_matmul_auto(a, b)
+        torch.cuda.synchronize()
+        counted = dict(int8_gemm_wgmma=int8.GEMM_WGMMA_LAUNCHES,
+                       int8_gemm_whole_k=int8.GEMM_WHOLE_K_LAUNCHES,
+                       int8_gemm_k_tiled=int8.GEMM_K_TILED_LAUNCHES)
+        assert counted == {name: int(name == route) for name in counted}, counted
+        assert torch.equal(got, int8.int8_matmul_plain(a, b))
+        log(f'int8_matmul_auto at K {K} (M 2408, N {N}): launches {counted}, bit-equal')
 
     x, w, (stride, dilation, _), kw = captured['conv']
     conv_records = [conv_case('path block10 K25 640->768', x, w, stride, dilation,
                               kw['w_packed']),
                     conv_case('probe B256 T304 768->768 K25', seeded(256, 304, 768),
                               seeded(25, 768, 768))]
-    block10 = gemms[(4096, 768)]
     records = dict(
         int8_conv_wgmma=(conv_records[0], launches['int8_conv_wgmma'],
                          'int8_conv.cu', 'scripts/int8_conv_probe.py:47'),
@@ -1003,8 +1072,7 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
                            whole_k_launches, 'int8_gemm.cu', 'scripts/int8_probe.py:55'),
         int8_gemm_k_tiled=((block10['ms']['old'], block10['plain_ms'], block10['bound'],
                             block10['bound_by'], block10['ms']['lib'], block10['old_err']),
-                           launches['int8_gemm_k_tiled'], 'int8_gemm.cu',
-                           'scripts/int8_probe.py:75'))
+                           k_tiled_launches, 'int8_gemm.cu', 'scripts/int8_probe.py:75'))
     kernels = []
     for name, ((ms, plain_ms, bound, bound_by, lib_ms, err), count, source,
                replaces) in records.items():

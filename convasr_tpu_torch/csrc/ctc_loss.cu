@@ -44,21 +44,38 @@
 // and its VMEM carry. Alpha (or beta) lives in shared memory; each thread
 // keeps its states' labels and skip flags in registers. No (B, T, S)
 // emission tensor exists: each state gathers from the frame's C-wide log-prob
-// row, staged in shared memory. The backward pass forms gamma and scatters it
-// straight into a C-wide gradient row in shared memory, so neither the
-// (B, T, S) dE tensor nor the one-hot product of the JAX path exists. Several
-// states share a class (the blank; repeated labels): the blank's L+1 states
-// are summed by a warp shuffle and one shared-memory atomicAdd per warp, label
-// states add with a shared-memory atomicAdd each. The order of those float
-// additions varies from run to run, so the gradient agrees with the plain
-// version to float32 rounding of a sum of at most L+1 terms in [0, 1], not bit
-// for bit (ops/ctc_loss.py states the tolerance).
+// row, staged in shared memory.
+//
+// The forward kernel (ctc_alpha) keeps one thread per state (K per thread
+// past 992 states) and one barrier a frame, with alpha in shared memory. Each
+// step reads shared memory only and writes nothing else: a ring of D frames in
+// shared memory, two chunks of D / 2 frames, holds both the row's log-probs
+// and its alpha frames. One more warp of the block (the memory warp) copies
+// each chunk's log-prob frames in by cp.async of 16-byte pieces a chunk ahead,
+// waited on with cp.async.wait_group, and stores each finished chunk's alpha
+// frames to device memory, so that neither a copy nor a device-memory store
+// stands before a step's barrier; the compute threads and the memory warp
+// meet at two named barriers at each chunk's end. (A row loaded inside the
+// step makes each of the xlen dependent steps wait a device-memory round trip
+// before its barrier.) The step is straight-line code over a thread's states
+// with the plain version's operations in its order and accurate expf/logf
+// (lse3_select).
+//
+// The backward pass forms gamma and scatters it straight into C-wide gradient
+// rows, so neither the (B, T, S) dE tensor nor the one-hot product of the JAX
+// path exists. Several states share a class (the blank; repeated labels).
+// The block kernel sums the blank's L+1 states by a warp shuffle and one
+// shared-memory atomicAdd per warp, label states with a shared-memory
+// atomicAdd each. The order of those float additions varies from run to run,
+// so the gradient agrees with the plain version to float32 rounding of a sum
+// of at most L+1 terms in [0, 1], not bit for bit (ops/ctc_loss.py states the
+// tolerance).
 //
 // The backward pass has two kernels. The block kernel (ctc_beta_grad, one
 // block a row) spends two block barriers a frame and waits, on every step of
 // the xlen-step chain, for the next frame's log-prob row and alpha to come
 // from device memory. The warp kernel (ctc_beta_grad_warp, the path's, for
-// S <= 32 * P_MAX; the rule is ops/ctc_loss.py beta_grad_warp_fits) takes
+// S <= WARP_S_MAX; the rule is ops/ctc_loss.py beta_grad_warp_fits) takes
 // both out of the chain, and takes the gradient off the warp that runs it:
 // - one warp (the chain warp) owns a row's beta: lane l keeps the beta of
 //   states l, l + 32, ... (K = ceil(S / 32) of them) in registers and reaches
@@ -94,80 +111,214 @@
 
 namespace {
 
-// K = states owned by each thread (S <= K * blockDim.x). The launch bound caps
-// registers at 64 a thread so that 1024 threads fit an SM's 65,536.
-template <int K>
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The 4-byte word (0-3) of a 16-byte piece at which p lies.
+__device__ __forceinline__ int lead(const float* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) >> 2 & 3);
+}
+
+// Threads i, i + stride, ... copy the n floats at src into dst (16-byte
+// aligned) by cp.async of 16-byte pieces, the first from src rounded down to
+// 16 bytes (the caller's tensor starts on 16 bytes), the last reading no
+// further than src + n; src's first float lands at dst + lead(src).
+__device__ __forceinline__ void copy_ahead(float* dst, const float* src, int n, int i,
+                                           int stride) {
+  const int off = lead(src);
+  const char* base = reinterpret_cast<const char*>(src - off);
+  const int bytes = 4 * (off + n);
+  for (int q = i; 16 * q < bytes; q += stride)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + 4 * q)),
+                 "l"(base + 16 * q), "r"(min(16, bytes - 16 * q))
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until this thread's copies, all but the newest N groups, have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// p ? a : b as one select instruction (a ternary that picks between
+// registers by lane may be compiled into a branch)
+__device__ __forceinline__ float pick(bool p, float a, float b) {
+  float y;
+  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}\n"
+      : "=f"(y)
+      : "f"(a), "f"(b), "r"((int)p));
+  return y;
+}
+
+// lse3 (ctc_lattice.cuh) as a select rather than an early return: the same
+// rule for out-of-reach arguments, and the plain version's operations in its
+// order, so that the float32 roundings of the large sums (|beta| grows by a
+// few units a frame) stay the same.
+__device__ __forceinline__ float lse3_select(float a, float b, float c) {
+  const float m = fmaxf(fmaxf(a, b), c);
+  const float r = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+  return m <= NEG_INF / 2 ? NEG_INF : r;
+}
+
+// floats of a chunk buffer of n floats copied from any 4-byte boundary
+__host__ __device__ inline int area(int n) { return (n + 6) / 4 * 4; }
+
+// frames in the forward's ring on the path, chosen by the sweep of
+// chip_smoke.py (PERF.md); ops/ctc_loss.py reads it from this line
+constexpr int ALPHA_DEPTH = 16;
+// the forward's threads a state at most: one more warp (the memory warp)
+// copies the log-probs in and alpha out
+constexpr int ALPHA_MAX_THREADS = 992;
+// the forward's named barriers (0 is __syncthreads)
+constexpr int BAR_STEP = 1;   // the compute threads, after each frame
+constexpr int BAR_FULL = 2;   // compute -> memory warp: a chunk's frames are done
+constexpr int BAR_READY = 3;  // memory warp -> compute: the next chunk's log-probs are in
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// compute threads of the forward for a lattice of S states
+int alpha_threads(int S) { return min((S + 31) / 32 * 32, ALPHA_MAX_THREADS); }
+
+// 4-byte words of the forward's shared memory for a ring of `depth` frames:
+// two chunks of depth / 2 frames, each of the log-probs (copied from any
+// 4-byte boundary) and of alpha
+inline int alpha_words(int S, int C, int depth) {
+  return 2 * area(depth / 2 * C) + depth * S;
+}
+
+// The deepest ring of at most `depth` frames (a power of two) whose buffers
+// fit a block's shared memory; 0 where not even two frames fit.
+int alpha_depth(int S, int C, int depth) {
+  for (int d = depth; d >= 2; d /= 2)
+    if (4L * alpha_words(S, C, d) <= SMEM_LIMIT) return d;
+  return 0;
+}
+
+// K = states owned by each compute thread (S <= K * (blockDim.x - 32)), D =
+// frames in the ring (a power of two, at least 2): two chunks of CH = D / 2
+// frames. The compute threads walk the frames, one barrier of their own a
+// frame; the last warp of the block (the memory warp) copies chunk j + 2's
+// log-probs in and chunk j's alpha frames out while chunk j + 1 runs, and the
+// two sides meet at each chunk's end. The launch bound caps registers at 64 a
+// thread so that 1024 threads fit an SM's 65,536.
+template <int K, int D>
 __global__ void __launch_bounds__(1024)
 ctc_alpha(const float* __restrict__ log_probs, const int* __restrict__ targets,
           const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
           int T, int C, int L, int blank, float* __restrict__ alpha, float* __restrict__ ll) {
-  extern __shared__ float smem[];
+  constexpr int CH = D / 2;
+  extern __shared__ __align__(16) float smem16[];
   const int S = 2 * L + 1;
-  float* alpha_buf[2] = {smem, smem + S};
-  float* row_buf[2] = {smem + 2 * S, smem + 2 * S + C};
+  const int cw = area(CH * C);
+  float* ring = smem16;           // the log-probs of chunk j in ring + (j & 1) * cw
+  float* alphas = ring + 2 * cw;  // alpha_t in alphas + (t % D) * S: chunk j in (j & 1)
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int nt = blockDim.x - 32;  // compute threads
+  const bool mem = tid >= nt;
   const int xl = min(max(input_lengths[b], 0), T);
   const int yl = min(max(target_lengths[b], 0), L);
   const float* lp = log_probs + (size_t)b * T * C;
   float* alpha_b = alpha + (size_t)b * T * S;
 
-  Lattice<K> lat;
-  lat.load(targets + (size_t)b * L, S, C, blank, yl, tid, nt, false);
-
   if (xl == 0) {
-    for (size_t i = tid; i < (size_t)T * S; i += nt) alpha_b[i] = NEG_INF;
+    for (size_t i = tid; i < (size_t)T * S; i += blockDim.x) alpha_b[i] = NEG_INF;
     if (tid == 0) ll[b] = NEG_INF;
     return;
   }
 
-  for (int c = tid; c < C; c += nt) row_buf[0][c] = lp[c];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int s = tid + k * nt;
-    if (s < S) {
-      const float e = (lat.row_bits >> k & 1) ? row_buf[0][lat.ext[k]] : NEG_INF;
-      const float a = s <= 1 ? e : NEG_INF;
-      alpha_buf[0][s] = a;
-      alpha_b[s] = a;
-    }
+  // chunk j holds frames j * CH .. below xlen; its log-probs go to their
+  // buffer in 16-byte pieces, one commit group a chunk (an empty one past
+  // xlen). (Copies issued, and alpha stored, by the compute threads in each
+  // step stood before the step's barrier and took much of its time: PERF.md.)
+  const int chunks = (xl + CH - 1) / CH;
+  auto frames = [&](int j) { return min(xl, (j + 1) * CH) - j * CH; };
+  auto issue = [&](int j) {
+    if (j < chunks)
+      copy_ahead(ring + (j & 1) * cw, lp + (size_t)j * CH * C, frames(j) * C, tid - nt, 32);
+    cp_async_commit();
+  };
+  if (mem) {
+    issue(0);
+    issue(1);
+    cp_async_wait<1>();  // chunk 0
   }
-  if (xl > 1)
-    for (int c = tid; c < C; c += nt) row_buf[1][c] = lp[(size_t)C + c];
   __syncthreads();
 
-  for (int t = 1; t < xl; ++t) {
-    const float* a_prev = alpha_buf[(t - 1) & 1];
-    float* a_next = alpha_buf[t & 1];
-    const float* row = row_buf[t & 1];
-    float* out = alpha_b + (size_t)t * S;
+  if (mem) {
+    for (int j = 0; j < chunks; ++j) {
+      bar_sync(BAR_FULL, nt + 32);  // the compute threads are done with chunk j
+      if (j + 1 < chunks) {
+        cp_async_wait<0>();  // chunk j + 1's log-probs have landed
+        __syncwarp();
+        bar_arrive(BAR_READY, nt + 32);
+      }
+      issue(j + 2);  // into chunk j's buffer
+      // chunk j's alpha frames to device memory; chunk j + 2 reuses their
+      // buffer only after this warp's next arrival at BAR_READY
+      const float* src = alphas + (j & 1) * CH * S;
+      float* dst = alpha_b + (size_t)j * CH * S;
+      for (int i = tid - nt; i < frames(j) * S; i += 32) dst[i] = src[i];
+    }
+  } else {
+    Lattice<K> lat;
+    lat.load(targets + (size_t)b * L, S, C, blank, yl, tid, nt, false);
+    // after frame t: the step barrier, or at a chunk's end the hand-over
+    auto end_of_frame = [&](int t) {
+      if ((t & (CH - 1)) == CH - 1 || t == xl - 1) {
+        bar_arrive(BAR_FULL, nt + 32);
+        if (t < xl - 1) bar_sync(BAR_READY, nt + 32);
+      } else {
+        bar_sync(BAR_STEP, nt);
+      }
+    };
+    {
+      const float* row = ring + lead(lp);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int s = tid + k * nt;
-      if (s < S) {
-        const float stay = a_prev[s];
-        const float prev1 = s >= 1 ? a_prev[s - 1] : NEG_INF;
-        const float prev2 = (lat.skip_bits >> k & 1) ? a_prev[s - 2] : NEG_INF;
-        const float e = (lat.row_bits >> k & 1) ? row[lat.ext[k]] : NEG_INF;
-        const float a = fmaxf(lse3(stay, prev1, prev2) + e, NEG_INF);
-        a_next[s] = a;
-        out[s] = a;
+      for (int k = 0; k < K; ++k) {
+        const int s = tid + k * nt;
+        const float e = pick(lat.row_bits >> k & 1, row[lat.ext[k]], NEG_INF);
+        if (s < S) alphas[s] = pick(s <= 1, e, NEG_INF);
       }
     }
-    if (t + 1 < xl) {
-      float* stage = row_buf[(t + 1) & 1];
-      const float* src = lp + (size_t)(t + 1) * C;
-      for (int c = tid; c < C; c += nt) stage[c] = src[c];
+    end_of_frame(0);
+    for (int t = 1; t < xl; ++t) {
+      const int j = t / CH;
+      const float* row = ring + (j & 1) * cw + lead(lp + (size_t)j * CH * C) + (t - j * CH) * C;
+      const float* a_prev = alphas + ((t - 1) & (D - 1)) * S;
+      float* a_next = alphas + (t & (D - 1)) * S;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        // a state past S computes the terms of state S-1 and stores nothing:
+        // the step has no branch, and the guarded store is predicated
+        const int s = tid + k * nt;
+        const int q = min(s, S - 1);
+        const float stay = a_prev[q];
+        const float prev1 = pick(q >= 1, a_prev[max(q - 1, 0)], NEG_INF);
+        const float prev2 = pick(lat.skip_bits >> k & 1, a_prev[max(q - 2, 0)], NEG_INF);
+        const float e = pick(lat.row_bits >> k & 1, row[lat.ext[k]], NEG_INF);
+        const float a = fmaxf(lse3_select(stay, prev1, prev2) + e, NEG_INF);
+        if (s < S) a_next[s] = a;
+      }
+      end_of_frame(t);
     }
-    __syncthreads();
   }
+  __syncthreads();
 
-  const float* last = alpha_buf[(xl - 1) & 1];
+  const float* last = alphas + ((xl - 1) & (D - 1)) * S;
   // frozen frames repeat the last alpha
-  for (size_t i = tid; i < (size_t)(T - xl) * S; i += nt)
+  for (size_t i = tid; i < (size_t)(T - xl) * S; i += blockDim.x)
     alpha_b[(size_t)xl * S + i] = last[i % S];
   if (tid == 0) {
     const float a1 = yl > 0 ? last[2 * yl - 1] : NEG_INF;
@@ -272,70 +423,16 @@ ctc_beta_grad(const float* __restrict__ log_probs, const int* __restrict__ targe
   }
 }
 
-// ops/ctc_loss.py reads P_MAX from this line for the states part of the warp
-// kernel's rule (ctc_loss_beta_grad_warp_fits below)
 constexpr int P_MAX = 32;           // states a lane owns at most: S <= 32 * P_MAX
+// ops/ctc_loss.py reads WARP_S_MAX from this line for the states part of the
+// route (ctc_loss_beta_grad_warp_fits below): the most states at which the
+// warp kernel beat the block kernel in every run of chip_smoke.py (PERF.md:
+// it won at S 321 and 513 and lost at 769 and 1023, B32 T500)
+constexpr int WARP_S_MAX = 513;
 constexpr int CHUNK = 8;            // frames copied and handed over together
 constexpr int ROWS = 2;             // rows a block at most, two warps each
 static_assert(32 % CHUNK == 0, "a chunk's blank partial sums are reduced by 32 / CHUNK lanes");
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The 4-byte word (0-3) of a 16-byte piece at which p lies.
-__device__ __forceinline__ int lead(const float* p) {
-  return (int)(reinterpret_cast<uintptr_t>(p) >> 2 & 3);
-}
-
-// One warp copies the n floats at src into dst (16-byte aligned) by cp.async
-// of 16-byte pieces, the first from src rounded down to 16 bytes (the caller's
-// tensor starts on 16 bytes), the last reading no further than src + n; src's
-// first float lands at dst + lead(src).
-__device__ __forceinline__ void copy_ahead(float* dst, const float* src, int n, int lane) {
-  const int off = lead(src);
-  const char* base = reinterpret_cast<const char*>(src - off);
-  const int bytes = 4 * (off + n);
-  for (int q = lane; 16 * q < bytes; q += 32)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + 4 * q)),
-                 "l"(base + 16 * q), "r"(min(16, bytes - 16 * q))
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until this lane's copies, all but the newest group, have landed
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-// the two warps of row r of the block meet
-__device__ __forceinline__ void pair_sync(int r) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + r) : "memory");
-}
-
-// p ? a : b as one select instruction (a ternary that picks between
-// registers by lane may be compiled into a branch)
-__device__ __forceinline__ float pick(bool p, float a, float b) {
-  float y;
-  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}\n"
-      : "=f"(y)
-      : "f"(a), "f"(b), "r"((int)p));
-  return y;
-}
-
-// lse3 (ctc_lattice.cuh) as a select rather than an early return: the same
-// rule for out-of-reach arguments, and the plain version's operations in its
-// order, so that the float32 roundings of the large sums (|beta| grows by a
-// few units a frame) stay the same.
-__device__ __forceinline__ float lse3_select(float a, float b, float c) {
-  const float m = fmaxf(fmaxf(a, b), c);
-  const float r = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
-  return m <= NEG_INF / 2 ? NEG_INF : r;
-}
-
-// floats of a chunk buffer of n floats copied from any 4-byte boundary
-__host__ __device__ inline int area(int n) { return (n + 6) / 4 * 4; }
 
 // 4-byte words of one row's shared memory, a multiple of 4: the chain warp's
 // two chunks of log-prob rows, the gradient warp's two chunks of alpha frames,
@@ -435,7 +532,7 @@ ctc_beta_grad_warp(const float* __restrict__ log_probs, const int* __restrict__ 
     auto issue = [&](int j) {
       if (j < chunks)
         copy_ahead(lp_buf + (j & 1) * area(CHUNK * C), lp + (size_t)lo(j) * C, count(j) * C,
-                   lane);
+                   lane, 32);
       cp_async_commit();
     };
     issue(0);
@@ -452,7 +549,7 @@ ctc_beta_grad_warp(const float* __restrict__ log_probs, const int* __restrict__ 
 #pragma unroll 1
     for (int j = 0; j < chunks; ++j) {
       const int l0 = lo(j), n = count(j);
-      cp_async_wait_prior();  // this lane's copies of chunk j have landed
+      cp_async_wait<1>();  // this lane's copies of chunk j have landed
       __syncwarp();           // and every lane's
       const float* rows = lp_buf + (j & 1) * area(CHUNK * C) + lead(lp + (size_t)l0 * C);
       float* b_out = b_buf + (j & 1) * CHUNK * S;
@@ -497,7 +594,7 @@ ctc_beta_grad_warp(const float* __restrict__ log_probs, const int* __restrict__ 
       }
       __syncwarp();  // every lane is done with this chunk's log-prob rows
       issue(j + 2);
-      pair_sync(r);  // chunk j's beta frames to the gradient warp
+      bar_sync(1 + r, 64);  // the row's two warps: chunk j's beta frames to the gradient warp
     }
     return;
   }
@@ -531,16 +628,16 @@ ctc_beta_grad_warp(const float* __restrict__ log_probs, const int* __restrict__ 
   auto issue = [&](int j) {
     if (j < chunks)
       copy_ahead(a_buf + (j & 1) * area(CHUNK * S), alpha_b + (size_t)lo(j) * S, count(j) * S,
-                 lane);
+                 lane, 32);
     cp_async_commit();
   };
   issue(0);
 #pragma unroll 1
   for (int j = 0; j < chunks; ++j) {
     const int l0 = lo(j), n = count(j);
-    pair_sync(r);  // the chain warp has written chunk j's beta frames
+    bar_sync(1 + r, 64);  // the chain warp has written chunk j's beta frames
     issue(j + 1);
-    cp_async_wait_prior();
+    cp_async_wait<1>();
     __syncwarp();
     const float* a_rows = a_buf + (j & 1) * area(CHUNK * S) + lead(alpha_b + (size_t)l0 * S);
     const float* b_in = b_buf + (j & 1) * CHUNK * S;
@@ -593,16 +690,44 @@ ctc_beta_grad_warp(const float* __restrict__ log_probs, const int* __restrict__ 
 
 size_t shared_bytes(int S, int C) { return (size_t)(2 * S + 2 * C) * sizeof(float); }
 
-template <int K>
+template <int K, int D>
 cudaError_t launch_alpha(const float* log_probs, const int* targets, const int* input_lengths,
                          const int* target_lengths, int B, int T, int C, int L, int blank,
                          float* alpha, float* ll, int threads, cudaStream_t stream) {
-  const size_t smem = shared_bytes(2 * L + 1, C);
-  cudaError_t err = allow_shared(ctc_alpha<K>, smem);
+  const size_t smem = (size_t)alpha_words(2 * L + 1, C, D) * sizeof(float);
+  cudaError_t err = allow_shared(ctc_alpha<K, D>, smem);
   if (err != cudaSuccess) return err;
-  ctc_alpha<K><<<B, threads, smem, stream>>>(log_probs, targets, input_lengths, target_lengths,
-                                             T, C, L, blank, alpha, ll);
+  ctc_alpha<K, D><<<B, threads + 32, smem, stream>>>(log_probs, targets, input_lengths,
+                                                     target_lengths, T, C, L, blank, alpha, ll);
   return cudaGetLastError();
+}
+
+// launch(std::integral_constant<int, K>()) with K = the states a compute
+// thread of the forward owns, a power of two up to 32
+template <typename Launch>
+cudaError_t with_alpha_states(int S, Launch launch) {
+  const int nt = alpha_threads(S), per = (S + nt - 1) / nt;
+  if (per <= 1) return launch(std::integral_constant<int, 1>());
+  if (per <= 2) return launch(std::integral_constant<int, 2>());
+  if (per <= 4) return launch(std::integral_constant<int, 4>());
+  if (per <= 8) return launch(std::integral_constant<int, 8>());
+  if (per <= 16) return launch(std::integral_constant<int, 16>());
+  if (per <= 32) return launch(std::integral_constant<int, 32>());
+  return cudaErrorInvalidValue;
+}
+
+// launch(std::integral_constant<int, D>()) for a ring of D = 2, 4, 8, 16 or
+// 32 frames; cudaErrorInvalidValue for any other D
+template <typename Launch>
+cudaError_t with_depth(int depth, Launch launch) {
+  switch (depth) {
+    case 2: return launch(std::integral_constant<int, 2>());
+    case 4: return launch(std::integral_constant<int, 4>());
+    case 8: return launch(std::integral_constant<int, 8>());
+    case 16: return launch(std::integral_constant<int, 16>());
+    case 32: return launch(std::integral_constant<int, 32>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int K>
@@ -648,20 +773,30 @@ cudaError_t with_lane_states(int S, Launch launch) {
 
 }  // namespace
 
-// Launches the forward pass on `stream`; returns the CUDA error code
-// (0 = launched). Shapes: log_probs (B, T, C) float32, targets (B, L) int32,
-// input/target lengths (B,) int32; outputs alpha (B, T, 2L+1) float32 and
-// ll (B,) float32 (-1e30 for a row with no alignment). All contiguous.
+// Launches the forward pass on `stream` with a ring of at most `depth`
+// frames (2, 4, 8, 16 or 32; fewer where that many do not fit shared memory;
+// the path's is ALPHA_DEPTH); returns the CUDA error code (0 = launched).
+// Shapes: log_probs (B, T, C) float32 starting on 16 bytes, targets (B, L)
+// int32, input/target lengths (B,) int32; outputs alpha (B, T, 2L+1) float32
+// and ll (B,) float32 (-1e30 for a row with no alignment). All contiguous.
+// cudaErrorInvalidValue for another depth, log_probs off 16 bytes, or a
+// lattice whose buffers do not fit.
 extern "C" int ctc_loss_alpha(const float* log_probs, const int* targets,
                               const int* input_lengths, const int* target_lengths, int B, int T,
-                              int C, int L, int blank, float* alpha, float* ll,
+                              int C, int L, int blank, float* alpha, float* ll, int depth,
                               void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int S = 2 * L + 1;
-  const int threads = block_threads(S);
-  return (int)with_states_per_thread(S, [&](auto k) {
-    return launch_alpha<decltype(k)::value>(log_probs, targets, input_lengths, target_lengths,
-                                            B, T, C, L, blank, alpha, ll, threads, stream);
+  const int threads = alpha_threads(S);
+  const int d = alpha_depth(S, C, depth);
+  if ((depth & (depth - 1)) || d == 0 || (reinterpret_cast<uintptr_t>(log_probs) & 15))
+    return (int)cudaErrorInvalidValue;
+  return (int)with_alpha_states(S, [&](auto k) {
+    return with_depth(d, [&](auto dd) {
+      return launch_alpha<decltype(k)::value, decltype(dd)::value>(
+          log_probs, targets, input_lengths, target_lengths, B, T, C, L, blank, alpha, ll,
+          threads, stream);
+    });
   });
 }
 
@@ -684,18 +819,24 @@ extern "C" int ctc_loss_beta_grad(const float* log_probs, const int* targets,
   });
 }
 
-// 1 where the warp backward kernel takes a lattice of L labels over C
-// classes: S = 2L+1 <= 32 * P_MAX, and one row's buffers fit a block's shared
-// memory; else 0 (ops/ctc_loss.py sends such a lattice to the block kernel).
+// Whether the warp backward kernel can run a lattice of S states over C
+// classes: S <= 32 * P_MAX, and one row's buffers fit a block's shared memory.
+static bool warp_reaches(int S, int C) {
+  return S >= 1 && C > 0 && S <= 32 * P_MAX && warp_rows(1, S, C) >= 1;
+}
+
+// 1 where the route gives the warp backward kernel a lattice of L labels over
+// C classes: S = 2L+1 <= WARP_S_MAX, and the kernel reaches it; else 0
+// (ops/ctc_loss.py sends such a lattice to the block kernel).
 extern "C" int ctc_loss_beta_grad_warp_fits(int L, int C) {
   const int S = 2 * L + 1;
-  return L >= 0 && C > 0 && S <= 32 * P_MAX && warp_rows(1, S, C) >= 1;
+  return L >= 0 && S <= WARP_S_MAX && warp_reaches(S, C);
 }
 
 // Launches the warp backward pass on `stream`, up to ROWS rows a block;
 // arguments and result as ctc_loss_beta_grad. cudaErrorInvalidValue for a
-// lattice ctc_loss_beta_grad_warp_fits refuses, or log_probs or alpha not on a
-// 16-byte boundary.
+// lattice the kernel does not reach (warp_reaches), or log_probs or alpha not
+// on a 16-byte boundary.
 extern "C" int ctc_loss_beta_grad_warp(const float* log_probs, const int* targets,
                                        const int* input_lengths, const int* target_lengths,
                                        const float* alpha, const float* ll, const float* g,
@@ -703,7 +844,7 @@ extern "C" int ctc_loss_beta_grad_warp(const float* log_probs, const int* target
                                        void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int S = 2 * L + 1;
-  if (!ctc_loss_beta_grad_warp_fits(L, C) ||
+  if (L < 0 || !warp_reaches(S, C) ||
       ((reinterpret_cast<uintptr_t>(log_probs) | reinterpret_cast<uintptr_t>(alpha)) & 15))
     return (int)cudaErrorInvalidValue;
   const int rows = warp_rows(B, S, C);

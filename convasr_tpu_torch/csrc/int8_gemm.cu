@@ -19,18 +19,21 @@
 // ~3 us at 3.35 TB/s; M 4096 K 1792 N 4096 (the TPU probe) is bound by its
 // operations, ~30 us.
 //
-// int8_gemm_wgmma (P1's route: K % 16 == 0, K <= WHOLE_K_MAX, 16-byte aligned
-// operands; the rule is ops/int8.py gemm_wgmma_fits. The kernel takes any K %
-// 16 == 0; K past WHOLE_K_MAX stays on P2's K-tiled kernel in this port):
+// int8_gemm_wgmma (the route of every K % 16 == 0, of any depth: P1's whole-K
+// products and P2's deep ones; 16-byte aligned operands; the rule is
+// ops/int8.py gemm_wgmma_fits):
 // - Products on wgmma.mma_async m64nNk32 s8 x s8 -> s32. A block owns BM = 128
 //   rows x BN columns (64, 128 or 192, picked per shape so that the grid fills
 //   the SMs in the fewest rounds); two consumer warpgroups each own a 64-row
-//   slab and keep its int32 sums in registers over all of K.
+//   slab and keep its int32 sums in registers over all of K, exact while
+//   |sum| < 2^31: up to K ~ 133,000 at +-127.
 // - One producer thread keeps TMA loads in flight through a ring of STAGES
-//   stages, each one 128-deep K chunk of a (128 x 128 bytes) and of b (BN x 128
-//   bytes), both with the 128-byte swizzle, with a "full" and an "empty"
-//   mbarrier each. There is no __syncthreads in the main loop. TMA zero-fills
-//   rows past M and N and the K past the last chunk, so no product is masked.
+//   stages over the K / 128 chunks (any number of them: a stage's phase bit
+//   flips at each pass of the ring), each one 128-deep K chunk of a (128 x 128
+//   bytes) and of b (BN x 128 bytes), both with the 128-byte swizzle, with a
+//   "full" and an "empty" mbarrier each. There is no __syncthreads in the main
+//   loop. TMA zero-fills rows past M and N and the K past the last chunk, so
+//   no product is masked.
 // - wgmma takes 8-bit operands K-major only, so b comes packed once per
 //   quantized tree as (N, K) (ops/int8.py pack_gemm_weight), with its tensor
 //   maps, one per BN, encoded then (int8_gemm_wgmma_encode_b): a call encodes
@@ -44,10 +47,10 @@
 //   contraction from there. Both panels take 2 * 64 * (K rounded up to 64 +
 //   16) bytes, which fits the 227 KB a block may use up to K = 1792
 //   (WHOLE_K_MAX).
-// - K-tiled (P2): 64-deep panels of K stream through one shared-memory tile,
-//   the next panel's loads in flight while the current one is computed, with
-//   the int32 accumulators in registers across panels: the fused residual
-//   GEMMs of blocks 7-10 (K 2304-4096), and any K above WHOLE_K_MAX.
+// - K-tiled (P2 for K past WHOLE_K_MAX that is not a multiple of 16): 64-deep
+//   panels of K stream through one shared-memory tile, the next panel's loads
+//   in flight while the current one is computed, with the int32 accumulators
+//   in registers across panels.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +63,7 @@ struct int8_gemm_k_tiled_kernel {};  // names the kernel in a profile
 
 namespace {
 
-// the largest K of the whole-K variant and of int8_gemm_wgmma (ops/int8.py
-// reads it from this line)
+// the largest K of the whole-K variant (ops/int8.py reads it from this line)
 constexpr int WHOLE_K_MAX = 1792;
 
 size_t whole_k_smem(int K) {
@@ -302,12 +304,10 @@ inline bool k_fits(int K) { return K >= K_MULTIPLE && K % K_MULTIPLE == 0; }
 
 }  // namespace int8_gemm_wgmma_tma
 
-// 1 if the route gives int8_gemm_wgmma a contraction of K: k_fits and P1's
-// depth, K <= WHOLE_K_MAX (ops/int8.py gemm_wgmma_fits is the same rule, with
-// the operand's 16-byte alignment). Deeper K stay on the K-tiled kernel.
-extern "C" int int8_gemm_wgmma_fits(int K) {
-  return int8_gemm_wgmma_tma::k_fits(K) && K <= WHOLE_K_MAX;
-}
+// 1 if the route gives int8_gemm_wgmma a contraction of K: k_fits, at any
+// depth (ops/int8.py gemm_wgmma_fits is the same rule, with the operand's
+// 16-byte alignment). Other K go to the mma.sync kernels.
+extern "C" int int8_gemm_wgmma_fits(int K) { return int8_gemm_wgmma_tma::k_fits(K); }
 
 // The tile width the launcher picks for the shape (for logs).
 extern "C" int int8_gemm_wgmma_bn(int M, int N) {

@@ -4,7 +4,8 @@ convasr_tpu/ops/ctc_pallas_v2.py and the parts of ops/ctc_pallas.py it uses).
 `CTCLoss` is one autograd function: its forward runs the alpha recursion and
 returns the per-row loss, its backward runs the beta recursion and returns
 d loss / d log_probs (B, T, C). On CUDA tensors they are the kernels of
-csrc/ctc_loss.cu (`alpha_kernel`, `beta_grad_kernel`: the warp kernel where
+csrc/ctc_loss.cu (`alpha_kernel`, its log-prob frames copied ahead through a
+ring in shared memory; `beta_grad_kernel`: the warp kernel where
 `beta_grad_warp_fits` takes the lattice, the block kernel elsewhere); on CPU
 tensors their plain versions (`alpha_plain`, `beta_grad_plain`), which
 compute exactly what the kernels compute. `ctc_loss_auto` picks by where the tensors lie, never
@@ -40,18 +41,19 @@ ALPHA_LAUNCHES = 0
 BETA_GRAD_LAUNCHES = 0        # the block backward kernel
 BETA_GRAD_WARP_LAUNCHES = 0   # the warp backward kernel
 
-# the warp backward kernel's most states a lane (S <= 32 * P_MAX), read from
-# csrc/ctc_loss.cu without a build (the rule's states part also serves the
-# CPU's tests)
-WARP_P_MAX = int(re.search(r'constexpr int P_MAX = (\d+);',
-                           (build.CSRC / 'ctc_loss.cu').read_text()).group(1))
+_SOURCE = (build.CSRC / 'ctc_loss.cu').read_text()
+# the most states the route gives the warp backward kernel, and the frames of
+# the forward's ring on the path, read from csrc/ctc_loss.cu without a build
+# (the rule's states part also serves the CPU's tests)
+WARP_S_MAX, ALPHA_DEPTH = (int(re.search(rf'constexpr int {name} = (\d+);', _SOURCE).group(1))
+                           for name in ('WARP_S_MAX', 'ALPHA_DEPTH'))
 
 
 def _library():
     lib = build.load('ctc_loss')
     if lib.ctc_loss_alpha.argtypes is None:
         lib.ctc_loss_alpha.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                       + [ctypes.c_void_p] * 3)
+                                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
         lib.ctc_loss_beta_grad.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                            + [ctypes.c_void_p] * 2)
         lib.ctc_loss_beta_grad_warp.argtypes = lib.ctc_loss_beta_grad.argtypes
@@ -63,12 +65,11 @@ def _library():
 
 
 def beta_grad_warp_fits(L: int, C: int) -> bool:
-    """The rule of the warp backward kernel: a lane owns at most P_MAX states
-    (S = 2L+1 <= 32 * P_MAX, L <= 511), and, as the library says
-    (csrc/ctc_loss.cu ctc_loss_beta_grad_warp_fits, which also refuses a
-    launch outside the rule), one row's buffers fit a block's shared memory.
-    Other lattices go to the block kernel."""
-    return 2 * L + 1 <= 32 * WARP_P_MAX and bool(_library().ctc_loss_beta_grad_warp_fits(L, C))
+    """The route of the backward pass: the warp kernel for S = 2L+1 <=
+    WARP_S_MAX (where it beat the block kernel) where, as the library says
+    (csrc/ctc_loss.cu ctc_loss_beta_grad_warp_fits), one row's buffers fit a
+    block's shared memory. Other lattices go to the block kernel."""
+    return 2 * L + 1 <= WARP_S_MAX and bool(_library().ctc_loss_beta_grad_warp_fits(L, C))
 
 
 def _lattice(targets, target_lengths, S, C, blank):
@@ -175,9 +176,8 @@ def beta_grad_plain(log_probs, targets, input_lengths, target_lengths, alpha, ll
     return grad
 
 
-def alpha_kernel(log_probs, targets, input_lengths, target_lengths, blank: int):
-    """csrc/ctc_loss.cu forward on the card -> (alpha (B, T, 2L+1), ll (B,))."""
-    global ALPHA_LAUNCHES
+def _launch_alpha(log_probs, targets, input_lengths, target_lengths, blank, depth):
+    """One launch of the forward kernel with a ring of at most `depth` frames."""
     lp, y, xlen, ylen = check_lattice_inputs(log_probs, targets, input_lengths, target_lengths,
                                              blank, 'ctc_loss_alpha')
     B, T, C = lp.shape
@@ -186,14 +186,32 @@ def alpha_kernel(log_probs, targets, input_lengths, target_lengths, blank: int):
     ll = torch.empty((B,), dtype=torch.float32, device=lp.device)
     if B == 0 or T == 0:
         return alpha, ll.fill_(NEG_INF)
+    # the ring takes frames in 16-byte pieces from a tensor that starts on 16
+    # bytes (the allocator's do; a view may not)
+    lp = lp if lp.data_ptr() % 16 == 0 else lp.clone()
     with torch.cuda.device(lp.device):
-        rc = _library().ctc_loss_alpha(lp.data_ptr(), y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(), B, T, C, L,
-                blank, alpha.data_ptr(), ll.data_ptr(),
-                torch.cuda.current_stream(lp.device).cuda_stream)
+        rc = _library().ctc_loss_alpha(
+            lp.data_ptr(), y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(), B, T, C, L, blank,
+            alpha.data_ptr(), ll.data_ptr(), depth,
+            torch.cuda.current_stream(lp.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'ctc_loss_alpha: CUDA error {rc} at launch')
-    ALPHA_LAUNCHES += 1
     return alpha, ll
+
+
+def alpha_kernel(log_probs, targets, input_lengths, target_lengths, blank: int):
+    """csrc/ctc_loss.cu forward on the card -> (alpha (B, T, 2L+1), ll (B,)),
+    its log-prob frames through a ring of ALPHA_DEPTH frames."""
+    global ALPHA_LAUNCHES
+    out = _launch_alpha(log_probs, targets, input_lengths, target_lengths, blank, ALPHA_DEPTH)
+    ALPHA_LAUNCHES += bool(log_probs.shape[0] and log_probs.shape[1])
+    return out
+
+
+def _alpha_depth(log_probs, targets, input_lengths, target_lengths, blank: int, depth: int):
+    """The forward kernel with a ring of `depth` frames (2, 4, 8, 16 or 32),
+    for measurements. Counts no launch."""
+    return _launch_alpha(log_probs, targets, input_lengths, target_lengths, blank, depth)
 
 
 def _beta_grad_inputs(log_probs, targets, input_lengths, target_lengths, alpha, ll, g, blank,

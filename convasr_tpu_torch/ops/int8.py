@@ -14,11 +14,11 @@ and scripts/int8_probe.py).
   (counted in CONV_WEIGHT_PACKS). Either of w and w_packed may be None.
 - `int8_matmul(a, b, b_packed=None)`: a int8 (M, K), b int8 (K, N) -> int32
   (M, N); csrc/int8_gemm.cu. Shapes that `gemm_wgmma_fits` takes (K % 16 ==
-  0, K <= WHOLE_K_MAX) run the wgmma GEMM, which reads b packed as (N, K)
-  with its tensor maps (`pack_gemm_weight`, a `GemmWeight`); a call without
-  b_packed packs (counted in GEMM_WEIGHT_PACKS). Other K up to
-  WHOLE_K_MAX run the mma.sync whole-K kernel, deeper K the K-tiled one, both on
-  b. Either of b and b_packed may be None.
+  0, at any depth) run the wgmma GEMM, which reads b packed as (N, K) with
+  its tensor maps (`pack_gemm_weight`, a `GemmWeight`); a call without
+  b_packed packs (counted in GEMM_WEIGHT_PACKS). Other K up to WHOLE_K_MAX
+  run the mma.sync whole-K kernel, deeper ones the K-tiled one, both on b.
+  Either of b and b_packed may be None.
 
 The public functions take the JAX package's layouts, so a quantized tree's
 weights go to the kernels as they are. `*_auto` picks the plain version
@@ -82,9 +82,9 @@ def _conv_library():
 
 
 # the deepest contraction of the whole-K GEMM (two 64-row panels of K, rounded
-# up to 64, + 16 bytes fit the 227 KB of shared memory a block has) and of the
-# wgmma GEMM; the wgmma GEMM's K is a multiple of GEMM_K_MULTIPLE (TMA's
-# 16-byte row strides); GEMM_NUM_BN tensor maps of GEMM_MAP_BYTES a packed b
+# up to 64, + 16 bytes fit the 227 KB of shared memory a block has); the wgmma
+# GEMM's K is a multiple of GEMM_K_MULTIPLE (TMA's 16-byte row strides);
+# GEMM_NUM_BN tensor maps of GEMM_MAP_BYTES a packed b
 WHOLE_K_MAX, GEMM_K_MULTIPLE, GEMM_NUM_BN, GEMM_MAP_BYTES = _source_constants(
     'int8_gemm', ('WHOLE_K_MAX', 'K_MULTIPLE', 'NUM_BN', 'MAP_BYTES'))
 _GEMM_ERRORS = {-1: 'cuTensorMapEncodeTiled not found', -2: 'a tensor map was not encoded',
@@ -150,10 +150,9 @@ def gemm_wgmma_fits(K: int) -> bool:
     """The shape rule of the wgmma GEMM (int8_gemm_wgmma_fits in
     csrc/int8_gemm.cu is the same rule, and refuses a launch outside it, or
     with an a not on 16 bytes, which int8_matmul copies first): TMA's 16-byte
-    row strides
-    (K % 16 == 0) and P1's depth (K <= WHOLE_K_MAX). Other K go to the mma.sync
+    row strides (K % 16 == 0), at any depth. Other K go to the mma.sync
     kernels."""
-    return GEMM_K_MULTIPLE <= K <= WHOLE_K_MAX and K % GEMM_K_MULTIPLE == 0
+    return K >= GEMM_K_MULTIPLE and K % GEMM_K_MULTIPLE == 0
 
 
 class GemmWeight(typing.NamedTuple):
@@ -390,8 +389,9 @@ def _launch_gemm(a, b, b_packed, N, route):
 
 def int8_matmul(a: torch.Tensor, b, b_packed=None) -> torch.Tensor:
     """csrc/int8_gemm.cu on the card -> int32 (M, N): the wgmma GEMM where
-    `gemm_wgmma_fits` takes K (on b_packed, packed here if not given), else the mma.sync whole-K kernel for K <= WHOLE_K_MAX and
-    the K-tiled one above (on b). Raises on anything the kernels do not take;
+    `gemm_wgmma_fits` takes K (on b_packed, packed here if not given), else
+    the mma.sync whole-K kernel for K <= WHOLE_K_MAX and the K-tiled one
+    above (on b). Raises on anything the kernels do not take;
     a failed encode or launch raises, never falls back."""
     global GEMM_WGMMA_LAUNCHES, GEMM_WHOLE_K_LAUNCHES, GEMM_K_TILED_LAUNCHES
     M, K, N = _check_matmul(a, b, b_packed)
@@ -414,8 +414,7 @@ def int8_matmul(a: torch.Tensor, b, b_packed=None) -> torch.Tensor:
 
 
 def _int8_matmul_wgmma(a, b_packed):
-    """The wgmma GEMM on any K % 16 == 0 (past P1's depth too), for
-    measurements. Counts no launch."""
+    """The wgmma GEMM, for measurements. Counts no launch."""
     _, _, N = _check_matmul(a, None, b_packed)
     _cuda_only('int8_matmul', a)
     return _launch_gemm(a, None, b_packed, N, 'wgmma')

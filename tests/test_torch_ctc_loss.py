@@ -180,6 +180,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (port.ALPHA_LAUNCHES, port.BETA_GRAD_LAUNCHES) == before
 
 
+@pytest.mark.parametrize('depth', [2, 4, 8, 16, 32])
+def test_alpha_ring_depths_refuse_cpu_tensors(depth):
+    """Each ring depth of the forward kernel (the path's is ALPHA_DEPTH, read
+    from csrc/ctc_loss.cu) is a card-only launch that counts nothing."""
+    assert port.ALPHA_DEPTH in (2, 4, 8, 16, 32)
+    lp, y, xlen, ylen, blank = make_batch(11, B=2, T=8)
+    t = [torch.from_numpy(a) for a in (lp, y, xlen, ylen)]
+    before = port.ALPHA_LAUNCHES
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        port._alpha_depth(*t, blank, depth)
+    assert port.ALPHA_LAUNCHES == before
+
+
 def test_backward_kernel_wrappers_refuse_cpu_tensors():
     lp, y, xlen, ylen, blank = make_batch(10, B=2, T=8)
     t = [torch.from_numpy(a) for a in (lp, y, xlen, ylen)]
@@ -197,17 +210,19 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 # (L, C) -> whether the warp backward kernel takes the lattice
 WARP_RULE_CASES = [
     ((128, 38), True),          # the train path: S = 257, 9 states a lane
-    ((511, 38), True),          # S = 1023: the most, 32 states a lane
-    ((512, 38), False),         # S = 1025: past P_MAX, the block kernel
+    ((511, 38), False),         # S = 1023: the warp kernel's reach, past the crossover
+    ((512, 38), False),         # S = 1025: past the warp kernel's reach, the block kernel
     ((700, 40), False),
     ((0, 38), True),            # no targets: one state
     ((128, 7000), False),       # two chunks of 8 rows of 7000 classes: past shared memory
+    ((256, 38), True),          # S = 513: the most the route sends to the warp kernel
+    ((257, 38), False),         # S = 515: past the crossover, the block kernel
 ]
 
 
 @pytest.mark.parametrize('shape,fits', WARP_RULE_CASES, ids=[str(c[0]) for c in WARP_RULE_CASES])
 def test_beta_grad_warp_rule(shape, fits, monkeypatch):
-    """The rule reads P_MAX from csrc/ctc_loss.cu and refuses S past 32 * P_MAX
+    """The rule reads WARP_S_MAX from csrc/ctc_loss.cu and refuses S past it
     without asking the library; inside that, the library's shared-memory check
     (stubbed here with the case's answer; tests/test_torch_cuda.py asks the
     real one) decides."""
@@ -220,6 +235,6 @@ def test_beta_grad_warp_rule(shape, fits, monkeypatch):
             asked.append(args)
             return int(fits)
     monkeypatch.setattr(port, '_library', Library)
-    assert port.WARP_P_MAX == 32
+    assert port.WARP_S_MAX == 513
     assert port.beta_grad_warp_fits(L, C) == fits
-    assert asked == ([] if 2 * L + 1 > 32 * port.WARP_P_MAX else [(L, C)])
+    assert asked == ([] if 2 * L + 1 > port.WARP_S_MAX else [(L, C)])

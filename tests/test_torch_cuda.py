@@ -99,7 +99,15 @@ LOSS_CASES = dict(
     infeasible_row=dict(seed=25, B=4, T=28, L=6, infeasible_row=True),
     zero_input_length=dict(seed=26, B=3, T=24, zero_xlen_row=True),
     many_states=dict(seed=27, B=3, T=400, C=40, L=700),        # 1401 states: 2 per thread
+    # the forward's ring of log-prob frames (ALPHA_DEPTH deep)
+    t_below_ring_depth=dict(seed=29, B=3, T=3, C=7, L=1),
+    t_not_a_ring_multiple=dict(seed=30, B=5, T=37, C=38, L=9),
+    unaligned_view=dict(seed=31, B=4, T=41, C=38, L=12, unaligned=True),
+    long_row=dict(seed=32, B=2, T=2500, C=38, L=511),
+    wide_classes=dict(seed=33, B=3, T=30, C=20000, L=16),      # a ring of 2 frames fits
 )
+# the lattices the route sends to the block backward kernel
+LOSS_BLOCK_CASES = ('many_states', 'wide_classes')
 
 
 def backward_launches():
@@ -112,13 +120,20 @@ def backward_launches():
 @pytest.mark.parametrize('case', LOSS_CASES)
 def test_ctc_loss_kernels_equal_plain(card, case):
     from convasr_tpu_torch.ops import ctc_loss
-    lp, y, xlen, ylen, blank = loss_batch(**LOSS_CASES[case])
+    c = dict(LOSS_CASES[case])
+    unaligned = c.pop('unaligned', False)
+    lp, y, xlen, ylen, blank = loss_batch(**c)
     g = torch.from_numpy(np.random.RandomState(1).uniform(0.5, 1.5, lp.shape[0]).astype(np.float32))
     alpha, ll = ctc_loss.alpha_plain(lp, y, xlen, ylen, blank)
     grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
     on_card = [t.to(card) for t in (lp, y, xlen, ylen)]
+    if unaligned:                     # log-probs that do not start on 16 bytes: copied first
+        shifted = torch.empty(lp.numel() + 1, device=card)[1:].view(lp.shape)
+        shifted.copy_(on_card[0])
+        assert shifted.data_ptr() % 16 != 0
+        on_card[0] = shifted
     warp = ctc_loss.beta_grad_warp_fits(y.shape[1], lp.shape[2])
-    assert warp == (case != 'many_states')
+    assert warp == (case not in LOSS_BLOCK_CASES and 2 * y.shape[1] + 1 <= ctc_loss.WARP_S_MAX)
     before = backward_launches()
     k_alpha, k_ll = ctc_loss.alpha_kernel(*on_card, blank)
     k_grad = ctc_loss.beta_grad_kernel(*on_card, k_alpha, k_ll, g.to(card), blank)
@@ -130,9 +145,30 @@ def test_ctc_loss_kernels_equal_plain(card, case):
     # library and of the CPU's differ in the last bit
     np.testing.assert_allclose(k_alpha.cpu().numpy(), alpha.numpy(), rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(k_ll.cpu()[feasible].numpy(), ll[feasible].numpy(), rtol=1e-5)
+    assert (k_ll.cpu()[xlen == 0] == -1e30).all()
     # gamma in [0, 1] summed per class with shared-memory atomics in any order
     np.testing.assert_allclose(k_grad.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
     assert (k_grad.cpu()[~feasible] == 0).all()
+
+
+@pytest.mark.parametrize('depth', [2, 4, 8, 16, 32])
+def test_ctc_alpha_ring_depths_equal_plain(card, depth):
+    """Every ring depth of the forward kernel (two chunks of depth / 2
+    frames), on rows shorter than the ring, rows that end inside a chunk or
+    at its end, and a row with xlen = 0; counts no launch."""
+    from convasr_tpu_torch.ops import ctc_loss
+    lp, y, xlen, ylen, blank = loss_batch(seed=34, B=6, T=45, C=38, L=10, zero_xlen_row=True)
+    xlen[1], xlen[2], xlen[3] = 1, depth - 1, depth // 2
+    alpha, ll = ctc_loss.alpha_plain(lp, y, xlen, ylen, blank)
+    before = backward_launches()
+    k_alpha, k_ll = ctc_loss._alpha_depth(*(t.to(card) for t in (lp, y, xlen, ylen)), blank,
+                                          depth)
+    torch.cuda.synchronize()
+    assert backward_launches() == before
+    feasible = ll > -5e29
+    assert torch.equal(k_ll.cpu() > -5e29, feasible) and k_ll[-1] == -1e30
+    np.testing.assert_allclose(k_alpha.cpu().numpy(), alpha.numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(k_ll.cpu()[feasible].numpy(), ll[feasible].numpy(), rtol=1e-5)
 
 
 def test_ctc_loss_auto_runs_both_kernels(card):
@@ -167,21 +203,24 @@ WARP_CASES = dict(
     long_t_l511=dict(seed=71, B=2, T=2500, C=38, L=511),
     past_shared_memory=dict(seed=72, B=2, T=300, C=7000, L=128),  # a row's buffers pass 227 KB
 )
+# the lattices the warp kernel does not reach
 BLOCK_CASES = ('past_rule', 'past_shared_memory')
 
 
 @pytest.mark.parametrize('case', WARP_CASES)
 def test_beta_grad_warp_kernel_equals_plain(card, case):
-    """The warp backward kernel against beta_grad_plain, within the stated
-    tolerance; the counters name the kernel the rule names."""
+    """The backward kernel the route names against beta_grad_plain, within the
+    stated tolerance, and the warp kernel also where it reaches past the route
+    (S up to 1024); the counters name the kernel the rule names."""
     from convasr_tpu_torch.ops import ctc_loss
     lp, y, xlen, ylen, blank = loss_batch(**WARP_CASES[case])
     g = torch.from_numpy(np.random.RandomState(3).uniform(0.5, 1.5, lp.shape[0]).astype(np.float32))
     alpha, ll = ctc_loss.alpha_plain(lp, y, xlen, ylen, blank)
     grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
     on_card = [t.to(card) for t in (lp, y, xlen, ylen, alpha, ll, g)]
+    reach = case not in BLOCK_CASES
     warp = ctc_loss.beta_grad_warp_fits(y.shape[1], lp.shape[2])
-    assert warp == (case not in BLOCK_CASES)
+    assert warp == (reach and 2 * y.shape[1] + 1 <= ctc_loss.WARP_S_MAX)
     before = backward_launches()
     k_grad = ctc_loss.beta_grad_kernel(*on_card, blank)
     torch.cuda.synchronize()
@@ -190,6 +229,9 @@ def test_beta_grad_warp_kernel_equals_plain(card, case):
     # gamma in [0, 1] summed per class with shared-memory atomics in any order
     np.testing.assert_allclose(k_grad.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
     assert (k_grad.cpu()[~feasible] == 0).all()
+    if reach and not warp:            # the warp kernel past the route: a measurement route
+        got = ctc_loss._beta_grad_route(*on_card, blank, 'warp')
+        np.testing.assert_allclose(got.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
     if case == 'ragged':
         # log-probs that do not start on 16 bytes (a view): copied before the launch
         shifted = torch.empty(lp.numel() + 1, device=card)[1:].view(lp.shape)
@@ -309,9 +351,9 @@ INT8_GEMM_CASES = dict(
     block1_res0=dict(M=2408, K=256, N=256),                  # the wgmma GEMM on the path
     block6_fused=dict(M=2408, K=1792, N=512),
     head=dict(M=2408, K=1024, N=38),
+    block10_fused=dict(M=2408, K=4096, N=768),               # the deepest on the path
     ragged_whole_k=dict(M=7, K=13, N=38),                    # K % 16: the mma.sync whole-K kernel
-    block10_fused=dict(M=2408, K=4096, N=768),               # K-tiled on the path
-    ragged_k_tiled=dict(M=33, K=1801, N=17),
+    ragged_k_tiled=dict(M=33, K=1801, N=17),                 # K % 16, past 1792: K-tiled
     overflow_edge=dict(M=70, K=4096, N=16, full=True),
     # the wgmma GEMM's edges: BM 128 rows, BN 64/128/192, 128-byte K chunks
     k16=dict(M=130, K=16, N=64),
@@ -320,6 +362,9 @@ INT8_GEMM_CASES = dict(
     one_row=dict(M=1, K=64, N=8),
     overflow_edge_whole_k=dict(M=129, K=1792, N=40, full=True),
     probe=dict(M=4096, K=1792, N=4096),
+    # the wgmma GEMM past 1792: 64 K chunks through the ring of stages, all +-127
+    wgmma_k8192_full=dict(M=150, K=8192, N=72, full=True),
+    wgmma_k2304_ragged=dict(M=1001, K=2304, N=77),            # block 7's K
 )
 
 
@@ -382,7 +427,7 @@ def test_int8_auto_dispatch_counts_each_variant(card):
     from convasr_tpu_torch.ops import int8
     x, w = (t.to(card) for t in int8_tensors(30, (2, 20, 16), (3, 16, 8)))
     a, b_short, b_ragged, b_deep = (t.to(card) for t in int8_tensors(
-        31, (5, 2000), (16, 8), (13, 8), (2000, 8)))
+        31, (5, 2001), (16, 8), (13, 8), (2001, 8)))
     before = (int8.CONV_LAUNCHES, int8.GEMM_WGMMA_LAUNCHES, int8.GEMM_WHOLE_K_LAUNCHES,
               int8.GEMM_K_TILED_LAUNCHES)
     int8.int8_conv1d_auto(x, w)

@@ -252,15 +252,18 @@ GEMM_ROUTE_CASES = [
     (1024, 'wgmma'),            # the head
     (13, 'whole_k'),            # K % 16: TMA needs 16-byte row strides
     (8, 'whole_k'),
-    (1800, 'k_tiled'),          # past WHOLE_K_MAX: P2's route, unchanged
-    (1808, 'k_tiled'),
-    (4096, 'k_tiled'),          # block 10's fused GEMM
+    (1800, 'k_tiled'),          # past WHOLE_K_MAX and K % 16: the K-tiled kernel
+    (1808, 'wgmma'),            # past WHOLE_K_MAX, K % 16 == 0: any depth
+    (2304, 'wgmma'),            # block 7's fused GEMM
+    (4096, 'wgmma'),            # block 10's fused GEMM
+    (8192, 'wgmma'),
 ]
 
 
 @pytest.mark.parametrize('K,route', GEMM_ROUTE_CASES, ids=[str(k) for k, _ in GEMM_ROUTE_CASES])
 def test_gemm_route_rule(K, route):
-    """The rule reads K_MULTIPLE and WHOLE_K_MAX from csrc/int8_gemm.cu."""
+    """The rule reads K_MULTIPLE and WHOLE_K_MAX from csrc/int8_gemm.cu: the
+    wgmma GEMM takes every K % 16 == 0, whatever its depth."""
     assert (int8.GEMM_K_MULTIPLE, int8.WHOLE_K_MAX) == (16, 1792)
     assert int8.gemm_wgmma_fits(K) == (route == 'wgmma')
     assert int8.gemm_route(K) == route

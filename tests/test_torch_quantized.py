@@ -244,6 +244,35 @@ def test_pack_weights_packs_each_weight_once():
                                                                 packs[1] + len(fits))
 
 
+def test_full_width_deep_fused_weights_are_packed():
+    """At JasperNetBig's full width the fused residual GEMMs of blocks 7-10
+    (K 2304-4096) take the wgmma GEMM as the shallower ones do, so
+    pack_weights packs their weights as GemmWeights: every one-tap product of
+    the int8 forward (block1.res0, the fused GEMMs of blocks 2-10, the one-tap
+    epilogue block, the head) has a packed weight, and none is K-tiled."""
+    from convasr_tpu_torch.ops import int8
+    with torch.device('meta'):                   # the plan only: no weights allocated
+        model = create_model('JasperNetBig', 64, (38,))
+    plan = model._block_plan()
+    fused = {i: sum(b['residual_channels']) for i, b in enumerate(plan)
+             if len(b['residual_channels']) >= 2}
+    assert {i: k for i, k in fused.items() if i >= 7} == {7: 2304, 8: 2816, 9: 3456, 10: 4096}
+    one_tap = [plan[1]['residual_channels'][0], *fused.values(),
+               plan[-2]['kwargs']['out_channels'], plan[-1]['kwargs']['out_channels']]
+    assert len(one_tap) == 12 and plan[-1]['kwargs']['kernel_size'] == 1
+    assert [int8.gemm_route(k) for k in one_tap] == ['wgmma'] * 12
+    rng = np.random.RandomState(3)
+    tree = {f'block{i}.resfused': dict(wq=torch.from_numpy(
+        rng.randint(-127, 128, size=(1, k, 24)).astype(np.int8))) for i, k in fused.items()
+        if i >= 7}
+    packs = int8.GEMM_WEIGHT_PACKS
+    assert q.pack_weights(tree) is tree
+    assert int8.GEMM_WEIGHT_PACKS == packs + 4
+    for layer in tree.values():
+        assert isinstance(layer['wqp'], int8.GemmWeight) and layer['wqp'].maps is None
+        assert torch.equal(layer['wqp'].packed, layer['wq'][0].t())
+
+
 def test_packed_tree_routes_packed_weights_once(monkeypatch):
     """A tree as the card holds it carries every conv weight also packed,
     once: the forward hands the packed weight to each of the 32 convs and to
