@@ -10,10 +10,16 @@
    features, ru char_legacy head) over synthetic 8 kHz audio with Russian
    reference segments; every kernel's launch count is set to 0 just before
    and read just after, and each kernel of the path must have launched;
-3. kernels: the alignment kernel against its plain PyTorch version on the
-   card, on the inputs the transcribe run gave it and at two further seeded
-   shapes: results bit-equal, times by CUDA events, and the least time the
-   card could take (bytes over 3.35 TB/s, operations over the float32 rate);
+   (the warp alignment kernel on every batch, the block pair never);
+3. kernels: both alignment kernels (the warp kernel, the block pair) against
+   their plain PyTorch version on the card, on the inputs the transcribe run
+   gave them, at two further seeded shapes (B8 T300 L80, B64 T1500 L400) and
+   at each shape of the route's sweep (B8 T301 and B32 T500 at S 257, 513,
+   801, 1023): char frames and final alpha bit-equal, times by CUDA events in
+   turns, the least time the card could take (bytes over 3.35 TB/s,
+   operations over the float32 rate), the block pair's forward and
+   backtrace apart (torch.profiler), the route each shape takes and whether
+   it is the faster kernel's;
 4. check: the model's log-probs on the card against the same model on the
    CPU on a short input;
 5. train: the port's `cli/train.main` on CUDA at full JasperNetBig width
@@ -43,7 +49,8 @@
    set to 0 just before and read just after: the wgmma int8 conv must have
    launched 32 times a batch, the mma.sync conv loop never, the wgmma GEMM
    12 times a batch (K 256-4096), the mma.sync whole-K and K-tiled GEMMs
-   never, the alignment kernel once, and the weights packed once per tree
+   never, the warp alignment kernel once (the block pair never), and the
+   weights packed once per tree
    (32 conv packs; phase 10 counts the one-tap weights the GEMM rule takes);
 9. kernels: the int8 conv and GEMM kernels against their plain versions
    (float64 on the card, exact) on inputs the int8 run gave them and at the
@@ -77,11 +84,14 @@
    phase 11's log-probs: tokens and lengths bit-equal, scores within 1e-4;
    the card call's kernel launches per frame and busy share by
    torch.profiler;
-13. kernels: the whole-T CTC loss kernels (K2f/K2b, ctc_loss_whole_t: no CLI
-   path reaches them) driven forward and backward on phase 5's captured train
-   batch with their launch counts set to 0 just before and read just after,
-   then held against their plain versions on that batch and at phase 6's two
-   seeded shapes, timed beside K1 and torch.nn.functional.ctc_loss.
+13. kernels: the whole-T CTC loss (K2f/K2b, ctc_loss_whole_t: no CLI path
+   reaches it) driven forward and backward on phase 5's captured train batch
+   with its launch counts set to 0 just before and read just after (K2b on
+   K1b's warp kernel, the whole-T block kernel never), then once past the
+   warp rule (S 601) on the whole-T block kernel, counted apart, against the
+   plain version on the CPU; both K2b kernels and K2f held against their plain
+   versions on the train batch and at phase 6's two seeded shapes, timed in
+   turns beside K1 and torch.nn.functional.ctc_loss.
 
 Prints the card's name and power limit, one JSON line of kernels, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -304,19 +314,23 @@ def main():
     args = transcribe.build_parser().parse_args(
         ['--checkpoint', ckpt, '-i', corpus, '-o', out_dir, '--device', 'cuda', '--align',
          '--output-json', '--output-csv', '--mono', '--profile-phases'])
-    align.KERNEL_LAUNCHES = ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
-    ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
+    align.WARP_LAUNCHES = align.BLOCK_LAUNCHES = 0
+    ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
     torch.cuda.synchronize()
     tic = time.perf_counter()
     transcribe.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
-    launches = dict(ctc_viterbi_align=align.KERNEL_LAUNCHES)
+    launches = dict(ctc_viterbi_align_warp=align.WARP_LAUNCHES,
+                    ctc_viterbi_align=align.BLOCK_LAUNCHES)
     transcribe.setup, align.ctc_alignment_kernel = setup, kernel
 
     params = list(seen['model'].parameters())
     assert params and all(p.is_cuda for p in params), 'model parameters are not on CUDA'
-    assert all(n > 0 for n in launches.values()), f'a kernel of the path never ran: {launches}'
+    # the path's lattice (L 128, S 257) is inside the warp kernel's rule: every
+    # batch on it, the block pair never
+    assert launches == dict(ctc_viterbi_align_warp=len(calls), ctc_viterbi_align=0) and calls, \
+        f'alignment launches {launches} for {len(calls)} batches'
     outputs = sorted(os.listdir(out_dir))
     assert 'transcripts.csv' in outputs and sum(o.endswith('.json') for o in outputs) == 2, outputs
     segments = [s for o in outputs if o.endswith('.json')
@@ -330,7 +344,8 @@ def main():
         f'{audio_seconds / decode:.1f} audio-seconds/s; launches {launches}; '
         f'{len(segments)} segments written')
 
-    # 3. kernels against their plain versions, at the main path's inputs first
+    # 3. the alignment kernels against their plain version, at the main path's
+    # inputs first: both kernels bit-equal wherever they reach, timed in turns
     rng = np.random.RandomState(1)
 
     def seeded_inputs(B, T, L, C=38, blank=37):
@@ -345,28 +360,67 @@ def main():
     a, kw = calls[0]
     cases = [('main path', a, kw), ('B8 T300 L80', *seeded_inputs(8, 300, 80)),
              ('B64 T1500 L400', *seeded_inputs(64, 1500, 400))]
-    records = []
-    for label, a, kw in cases:
-        frames, final = kernel(*a, return_final=True, **kw)
-        ref_frames, ref_final = ctc_alignment(*a, return_final=True, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(frames, ref_frames), f'{label}: char frames differ from the plain version'
-        assert torch.equal(final, ref_final), f'{label}: final alpha differs from the plain version'
-        err = float((final - ref_final).abs().max())
-        ms = cuda_ms(lambda: kernel(*a, **kw), reps=20)
-        plain_ms = cuda_ms(lambda: ctc_alignment(*a, **kw), reps=2)
-        bound, bound_by = viterbi_bound_ms(a[0], a[1], a[2])
+    # the route's sweep: the path's lattice, K1b's crossover, the seeded
+    # B64 T1500 lattice and the warp kernel's reach
+    sweep = [(f'B{B} T{T} S{2 * L + 1}', *seeded_inputs(B, T, L))
+             for B, T in ((8, 301), (32, 500)) for L in (128, 256, 400, 511)]
+    records, faster = {}, []
+    for n, (label, a, kw) in enumerate(cases + sweep):
         B, T, C = a[0].shape
-        log(f'ctc_viterbi_align [{label}] B={B} T={T} C={C} L={a[1].shape[1]}: bit-equal; '
-            f'kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.5f} ms ({bound_by}); '
-            f'int8 backpointers {B * T * (2 * a[1].shape[1] + 1) / 1e6:.2f} MB')
-        records.append((label, ms, plain_ms, bound, bound_by, err))
-    _, ms, plain_ms, bound, bound_by, err = records[0]
-    kernels = [dict(name='ctc_viterbi_align', route='cuda',
-                    source='convasr_tpu_torch/csrc/ctc_viterbi.cu',
-                    replaces='convasr_tpu/ops/align_pallas.py:28',
-                    launches=launches['ctc_viterbi_align'], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None)]
+        L = a[1].shape[1]
+        route = align.viterbi_route(L, C)
+        spill_words = align._library().ctc_viterbi_warp_spill_words(T, L, C)
+        ref_frames, ref_final = ctc_alignment(*a, return_final=True, **kw)
+        for other in ('warp', 'block'):
+            frames, final = align._alignment_route(*a, route=other, return_final=True, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(frames, ref_frames), \
+                f'{label}: the {other} kernel\'s char frames differ from the plain version'
+            assert torch.equal(final, ref_final), \
+                f'{label}: the {other} kernel\'s final alpha differs from the plain version'
+        err = float((final - ref_final).abs().max())
+        # by CUDA events, and queued (the card's own time, without the
+        # wrappers' host work, which the warp kernel's short launches can
+        # outlast; the events' time where the spin ended too soon)
+        turns = {r: [] for r in ('block', 'warp')}
+        queued = {r: [] for r in ('block', 'warp')}
+        for r in ('block', 'warp', 'warp', 'block'):
+            turns[r].append(cuda_ms(lambda: align._alignment_route(*a, route=r, **kw), reps=20))
+            own = queued_ms(lambda: align._alignment_route(*a, route=r, **kw), reps=20)
+            queued[r].append(turns[r][-1] if own is None else own)
+        warp_ms, block_ms = min(turns['warp']), min(turns['block'])
+        warp_own, block_own = min(queued['warp']), min(queued['block'])
+        bound, bound_by = viterbi_bound_ms(a[0], a[1], a[2])
+        text = (f'ctc_viterbi [{label}] B={B} T={T} C={C} S={2 * L + 1}: both kernels bit-equal; '
+                f'warp {warp_ms:.4f}-{max(turns["warp"]):.4f} ms (queued {warp_own:.4f}-'
+                f'{max(queued["warp"]):.4f}), block pair {block_ms:.4f}-{max(turns["block"]):.4f} '
+                f'ms (queued {block_own:.4f}-{max(queued["block"]):.4f}), bound {bound:.5f} ms '
+                f'({bound_by}); route: {route}; the warp kernel\'s backpointers '
+                + (f'spill, {B * spill_words * 4 / 1e6:.2f} MB' if spill_words else
+                   'in shared memory')
+                + f' (the block pair\'s int8: {B * T * (2 * L + 1) / 1e6:.2f} MB)')
+        if n < len(cases):
+            plain_ms = cuda_ms(lambda: ctc_alignment(*a, **kw), reps=2)
+            split = kernel_split_ms(lambda: align._alignment_route(*a, route='block', **kw),
+                                    ('viterbi_forward', 'viterbi_backtrace'))
+            text += (f'; plain {plain_ms:.2f} ms; the block pair under torch.profiler: forward '
+                     f'{split["viterbi_forward"]:.4f} ms, backtrace '
+                     f'{split["viterbi_backtrace"]:.4f} ms')
+            records[label] = (warp_ms, block_ms, plain_ms, bound, bound_by, err)
+        else:
+            faster.append((2 * L + 1, B, T, route, 'warp' if warp_own < block_own else 'block'))
+        log(text)
+    agree = all(route == won for *_, route, won in faster)
+    log(f'ctc_viterbi route: the faster kernel (queued) at (S, B, T) '
+        f'{[(S, B, T, won) for S, B, T, _, won in faster]}; the route sends S <= '
+        f'{align.WARP_S_MAX} to the warp kernel; route and faster kernel agree: {agree}')
+    warp_ms, block_ms, plain_ms, bound, bound_by, err = records['main path']
+    kernels = [dict(name=name, route='cuda', source='convasr_tpu_torch/csrc/ctc_viterbi.cu',
+                    replaces='convasr_tpu/ops/align_pallas.py:28', launches=launches[name],
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=bound_by, library_ms=None)
+               for name, ms in (('ctc_viterbi_align_warp', warp_ms),
+                                ('ctc_viterbi_align', block_ms))]
 
     # 4. the model on the card against the same model on the CPU, float32
     cpu_model = create_model('JasperNetBig', num_input_features=64, num_classes=(38,),
@@ -396,6 +450,22 @@ def main():
     print(json.dumps(dict(ok=True, device=dict(platform='gpu', kind=torch.cuda.get_device_name(0),
                                                count=torch.cuda.device_count()))))
     return 0
+
+
+def kernel_split_ms(run, names, reps=10):
+    """Card time a call of `run` spends in the kernels whose names contain each
+    of `names`, by torch.profiler over `reps` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    split = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                       if name in e.key) / 1e3 / reps for name in names}
+    assert all(ms > 0 for ms in split.values()), f'no device time for {names}: {split}'
+    return split
 
 
 def profile_kinds(label, run, classify):
@@ -505,8 +575,7 @@ def train_phases(device):
          '--text-config', str(ROOT / 'configs' / 'ru_text_config.json'),
          '--val-config', str(ROOT / 'configs' / 'ru_val_config.json')])
     assert args.device == 'cuda' and args.model == 'JasperNetBig' and args.bf16
-    align.KERNEL_LAUNCHES = ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
-    ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
+    ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     tic = time.perf_counter()
@@ -841,7 +910,7 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     int8.CONV_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
     int8.CONV_MMA_SYNC_LAUNCHES = int8.CONV_WEIGHT_PACKS = 0
     int8.GEMM_WGMMA_LAUNCHES = int8.GEMM_WEIGHT_PACKS = 0
-    align.KERNEL_LAUNCHES = 0
+    align.WARP_LAUNCHES = align.BLOCK_LAUNCHES = 0
     torch.cuda.synchronize()
     tic = time.perf_counter()
     try:
@@ -853,19 +922,21 @@ def int8_phases(device, ckpt, corpus, audio_seconds, num_segments, cpu_model, bf
     wall = time.perf_counter() - tic
     launches = dict(int8_conv_wgmma=int8.CONV_LAUNCHES,
                     int8_gemm_wgmma=int8.GEMM_WGMMA_LAUNCHES,
-                    ctc_viterbi_align=align.KERNEL_LAUNCHES)
+                    ctc_viterbi_align_warp=align.WARP_LAUNCHES)
+    block_align_launches = align.BLOCK_LAUNCHES
     mma_sync_launches, packs = int8.CONV_MMA_SYNC_LAUNCHES, int8.CONV_WEIGHT_PACKS
     whole_k_launches, gemm_packs = int8.GEMM_WHOLE_K_LAUNCHES, int8.GEMM_WEIGHT_PACKS
     k_tiled_launches = int8.GEMM_K_TILED_LAUNCHES
     assert all(n > 0 for n in launches.values()), f'a kernel of the path never ran: {launches}'
-    batches = launches['ctc_viterbi_align']
+    batches = launches['ctc_viterbi_align_warp']
     # per batch: 32 convs with taps, all on the wgmma kernel; 12 wgmma GEMMs
     # (block1.res0, the fused residual GEMMs of blocks 2-10, K 512-4096, the
     # one-tap epilogue block, the head); the weights packed once, when the
     # tree went to the card (phase 10 counts the one-tap weights the GEMM rule
     # takes)
     assert launches == dict(int8_conv_wgmma=32 * batches, int8_gemm_wgmma=12 * batches,
-                            ctc_viterbi_align=batches), launches
+                            ctc_viterbi_align_warp=batches), launches
+    assert block_align_launches == 0, f'the block alignment pair ran {block_align_launches} times'
     assert mma_sync_launches == 0, f'the mma.sync conv loop ran {mma_sync_launches} times'
     assert whole_k_launches == 0, f'the mma.sync whole-K GEMM ran {whole_k_launches} times'
     assert k_tiled_launches == 0, f'the K-tiled GEMM ran {k_tiled_launches} times'
@@ -1198,12 +1269,14 @@ def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
         return search(log_probs, input_lengths, *a, **kw)
 
     def counts():
-        return dict(ctc_viterbi_align=align.KERNEL_LAUNCHES,
+        return dict(ctc_viterbi_align_warp=align.WARP_LAUNCHES,
+                    ctc_viterbi_align=align.BLOCK_LAUNCHES,
                     ctc_loss_alpha=ctc_loss.ALPHA_LAUNCHES,
                     ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES,
                     ctc_loss_beta_grad_warp=ctc_loss.BETA_GRAD_WARP_LAUNCHES,
                     ctc_loss_whole_t_alpha=ctc_loss_whole_t.ALPHA_LAUNCHES,
                     ctc_loss_whole_t_beta_grad=ctc_loss_whole_t.BETA_GRAD_LAUNCHES,
+                    ctc_loss_whole_t_beta_grad_warp=ctc_loss_whole_t.BETA_GRAD_WARP_LAUNCHES,
                     int8_conv_wgmma=int8.CONV_LAUNCHES,
                     int8_conv_mma_sync=int8.CONV_MMA_SYNC_LAUNCHES,
                     int8_gemm_wgmma=int8.GEMM_WGMMA_LAUNCHES,
@@ -1220,9 +1293,11 @@ def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
                  '--decoder', decoder, '--output-json', '--mono'] + flags)
             assert args.bf16
             seen['decode_s'], beam_calls[:] = [], []
-            align.KERNEL_LAUNCHES = ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
+            align.WARP_LAUNCHES = align.BLOCK_LAUNCHES = 0
+            ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = 0
             ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
             ctc_loss_whole_t.ALPHA_LAUNCHES = ctc_loss_whole_t.BETA_GRAD_LAUNCHES = 0
+            ctc_loss_whole_t.BETA_GRAD_WARP_LAUNCHES = 0
             int8.CONV_LAUNCHES = int8.GEMM_WHOLE_K_LAUNCHES = int8.GEMM_K_TILED_LAUNCHES = 0
             int8.CONV_MMA_SYNC_LAUNCHES = int8.GEMM_WGMMA_LAUNCHES = 0
             torch.cuda.synchronize()
@@ -1289,50 +1364,95 @@ def beam_phases(device, ckpt, corpus, audio_seconds, num_segments):
 
 
 def whole_t_phases(cases):
-    """Phase 13; returns the JSON records of K2f and K2b."""
+    """Phase 13; returns the JSON records of K2f and of K2b's two kernels."""
     import torch.nn.functional as F
     from convasr_tpu_torch.ops import ctc_loss, ctc_loss_whole_t as k2
 
-    # 13. the whole-T loss forward and backward on phase 5's captured batch
-    lp, y, xlen, ylen, blank, g = cases[0][1]
-    x = lp.detach().clone().requires_grad_()
-    k2.ALPHA_LAUNCHES = k2.BETA_GRAD_LAUNCHES = 0
-    torch.cuda.synchronize()
-    loss = k2.ctc_loss_whole_t(x, y, xlen, ylen, blank=blank)
-    (loss * g).sum().backward()
-    torch.cuda.synchronize()
-    launches = dict(ctc_loss_whole_t_alpha=k2.ALPHA_LAUNCHES,
+    def counts():
+        return dict(ctc_loss_whole_t_alpha=k2.ALPHA_LAUNCHES,
+                    ctc_loss_whole_t_beta_grad_warp=k2.BETA_GRAD_WARP_LAUNCHES,
                     ctc_loss_whole_t_beta_grad=k2.BETA_GRAD_LAUNCHES)
-    assert all(n > 0 for n in launches.values()), f'a K2 kernel never ran: {launches}'
+
+    def drive(lp, y, xlen, ylen, blank, g):
+        x = lp.detach().clone().requires_grad_()
+        k2.ALPHA_LAUNCHES = k2.BETA_GRAD_LAUNCHES = k2.BETA_GRAD_WARP_LAUNCHES = 0
+        torch.cuda.synchronize()
+        loss = k2.ctc_loss_whole_t(x, y, xlen, ylen, blank=blank)
+        (loss * g).sum().backward()
+        torch.cuda.synchronize()
+        return loss.detach(), x.grad, counts()
+
+    # 13. the whole-T loss forward and backward on phase 5's captured batch:
+    # K2b on K1b's warp kernel (L 128 is inside its rule)
+    lp, y, xlen, ylen, blank, g = cases[0][1]
+    loss, grad, train_launches = drive(lp, y, xlen, ylen, blank, g)
+    assert train_launches == dict(ctc_loss_whole_t_alpha=1, ctc_loss_whole_t_beta_grad_warp=1,
+                                  ctc_loss_whole_t_beta_grad=0), f'K2 launches {train_launches}'
     k1_loss = ctc_loss.ctc_loss_auto(lp, y, xlen, ylen, blank=blank)
-    assert torch.isfinite(loss).all() and torch.isfinite(x.grad).all()
-    k1_rel = float(((loss.detach() - k1_loss).abs() / k1_loss.abs()).max())
+    assert torch.isfinite(loss).all() and torch.isfinite(grad).all()
+    k1_rel = float(((loss - k1_loss).abs() / k1_loss.abs()).max())
     assert k1_rel < 1e-5, f'K2 and K1 losses differ by {k1_rel} on rows with xlen > 0'
-    log(f'ctc_loss_whole_t on the train batch {tuple(lp.shape)}: launches {launches}; loss '
+    log(f'ctc_loss_whole_t on the train batch {tuple(lp.shape)}: launches {train_launches}; loss '
         f'relative to K1 {k1_rel:.2e} (same math where xlen > 0)')
+
+    # K2b's other route, the whole-T block kernel, past WARP_S_MAX (S 601),
+    # with a row of xlen 0 that takes frame 0 (a finite loss, a zero gradient)
+    rng = np.random.RandomState(13)
+    B, T, L, C = 8, 300, 300, 38
+    lp = torch.log_softmax(torch.from_numpy(rng.randn(B, T, C).astype(np.float32) * 3), -1)
+    y = torch.from_numpy(rng.randint(0, C - 1, size=(B, L)).astype(np.int32))
+    xlen = torch.from_numpy(rng.randint(T // 2, T + 1, size=B).astype(np.int32))
+    ylen = torch.from_numpy(rng.randint(L // 4, L // 2, size=B).astype(np.int32))
+    xlen[0], ylen[0] = 0, 1
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32))
+    assert k2.beta_grad_route(L, C) == 'block' and 2 * L + 1 > ctc_loss.WARP_S_MAX
+    loss, grad, launches = drive(*(t.cuda() for t in (lp, y, xlen, ylen)), C - 1, g.cuda())
+    assert launches == dict(ctc_loss_whole_t_alpha=1, ctc_loss_whole_t_beta_grad_warp=0,
+                            ctc_loss_whole_t_beta_grad=1), f'K2 launches {launches}'
+    x_cpu = lp.clone().requires_grad_()
+    ref = k2.ctc_loss_whole_t(x_cpu, y, xlen, ylen, blank=C - 1)
+    (ref * g).sum().backward()
+    finite = torch.isfinite(ref)
+    assert finite[0] and torch.equal(torch.isfinite(loss).cpu(), finite)
+    loss_rel = float(((loss.cpu() - ref).abs() / ref.abs().clamp(min=1))[finite].max())
+    grad_err = float((grad.cpu() - x_cpu.grad).abs().max())
+    assert loss_rel < 1e-5, \
+        f'K2 on the block route: loss differs from the plain version by {loss_rel}'
+    assert torch.allclose(grad.cpu(), x_cpu.grad, rtol=1e-3, atol=1e-4), \
+        f'K2b on the block route: gradient differs from the plain version by {grad_err}'
+    assert (grad[0] == 0).all(), 'the row of xlen 0 has a gradient'
+    log(f'ctc_loss_whole_t past the warp rule B={B} T={T} C={C} S={2 * L + 1}: launches '
+        f'{launches}; loss rel err {loss_rel:.2e}, grad max abs err {grad_err:.2e} against the '
+        f'plain version on the CPU; the row of xlen 0 has a finite loss and a zero gradient')
 
     records = []
     for label, (lp, y, xlen, ylen, blank, g) in cases:
         B, T, C = lp.shape
         L = y.shape[1]
         assert k2.smem_fits(T, L, C), f'{label}: T={T} does not fit the whole-T kernels'
+        route = k2.beta_grad_route(L, C)
         alpha, ll = k2.alpha_kernel(lp, y, xlen, ylen, blank)
-        grad = k2.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank)
         ref_alpha, ref_ll = k2.alpha_whole_t_plain(lp, y, xlen, ylen, blank)
         ref_grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, ref_alpha, ref_ll, g, blank)
-        torch.cuda.synchronize()
         feasible = ref_ll > -5e29
         assert torch.equal(ll > -5e29, feasible), f'{label}: feasible rows differ'
         loss_err = float(((ll - ref_ll).abs() / ref_ll.abs().clamp(min=1))[feasible].max())
         loss_abs_err = float((ll - ref_ll).abs()[feasible].max())
-        grad_err = float((grad - ref_grad).abs().max())
         assert loss_err < 1e-5, f'{label}: K2f loss differs from the plain version by {loss_err}'
-        # gamma in [0, 1], summed per class with shared-memory atomics
-        assert torch.allclose(grad, ref_grad, rtol=1e-3, atol=1e-4), \
-            f'{label}: K2b gradient differs from the plain version by {grad_err}'
+        grad_errs = {}
+        for r in ('warp', 'block'):
+            grad = k2._beta_grad_route(lp, y, xlen, ylen, alpha, ll, g, blank, r)
+            torch.cuda.synchronize()
+            grad_errs[r] = float((grad - ref_grad).abs().max())
+            # gamma in [0, 1], summed per class (the block kernel with atomics)
+            assert torch.allclose(grad, ref_grad, rtol=1e-3, atol=1e-4), \
+                f'{label}: K2b ({r}) gradient differs from the plain version by {grad_errs[r]}'
         fwd_ms = cuda_ms(lambda: k2.alpha_kernel(lp, y, xlen, ylen, blank), reps=20)
-        bwd_ms = cuda_ms(lambda: k2.beta_grad_kernel(lp, y, xlen, ylen, alpha, ll, g, blank),
-                         reps=20)
+        turns = {r: [] for r in ('block', 'warp')}
+        for r in ('block', 'warp', 'warp', 'block'):
+            turns[r].append(cuda_ms(lambda: k2._beta_grad_route(lp, y, xlen, ylen, alpha, ll, g,
+                                                                blank, r), reps=20))
+        bwd_ms = {r: min(v) for r, v in turns.items()}
         k1_alpha, k1_ll = ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank)
         k1_fwd_ms = cuda_ms(lambda: ctc_loss.alpha_kernel(lp, y, xlen, ylen, blank), reps=20)
         k1_bwd_ms = cuda_ms(lambda: ctc_loss.beta_grad_kernel(lp, y, xlen, ylen, k1_alpha, k1_ll,
@@ -1352,27 +1472,31 @@ def whole_t_phases(cases):
         lib_pair_ms = cuda_ms(lib_pair, reps=20)
         bounds = ctc_loss_bound_ms(xlen, B, T, C, L)
         log(f'ctc_loss_whole_t [{label}] B={B} T={T} C={C} L={L}: loss rel err {loss_err:.2e}, '
-            f'grad max abs err {grad_err:.2e}; K2 fwd {fwd_ms:.4f} ms, bwd {bwd_ms:.4f} ms; K1 '
-            f'fwd {k1_fwd_ms:.4f} ms, bwd {k1_bwd_ms:.4f} ms; plain fwd {plain_fwd_ms:.2f} ms, '
-            f'bwd {plain_bwd_ms:.2f} ms; F.ctc_loss fwd {lib_fwd_ms:.4f} ms, fwd+bwd '
-            f'{lib_pair_ms:.4f} ms; bound fwd {bounds["alpha"][0]:.5f} ms '
-            f'({bounds["alpha"][1]}), bwd {bounds["beta_grad"][0]:.5f} ms '
-            f'({bounds["beta_grad"][1]}); shared memory a block '
+            f'grad max abs err warp {grad_errs["warp"]:.2e}, block {grad_errs["block"]:.2e}; '
+            f'K2 fwd {fwd_ms:.4f} ms, bwd on K1b\'s warp kernel {bwd_ms["warp"]:.4f}-'
+            f'{max(turns["warp"]):.4f} ms, on the whole-T block kernel {bwd_ms["block"]:.4f}-'
+            f'{max(turns["block"]):.4f} ms (route: {route}); K1 fwd {k1_fwd_ms:.4f} ms, bwd '
+            f'{k1_bwd_ms:.4f} ms; plain fwd {plain_fwd_ms:.2f} ms, bwd {plain_bwd_ms:.2f} ms; '
+            f'F.ctc_loss fwd {lib_fwd_ms:.4f} ms, fwd+bwd {lib_pair_ms:.4f} ms; bound fwd '
+            f'{bounds["alpha"][0]:.5f} ms ({bounds["alpha"][1]}), bwd '
+            f'{bounds["beta_grad"][0]:.5f} ms ({bounds["beta_grad"][1]}); shared memory a block '
             f'{k2.smem_bytes(T, L, C) / 1024:.1f} KiB')
-        records.append(dict(alpha=(fwd_ms, plain_fwd_ms, *bounds['alpha'], lib_fwd_ms,
-                                   loss_abs_err),
-                            beta_grad=(bwd_ms, plain_bwd_ms, *bounds['beta_grad'], lib_pair_ms,
-                                       grad_err)))
+        records.append(dict(
+            alpha=(fwd_ms, plain_fwd_ms, *bounds['alpha'], lib_fwd_ms, loss_abs_err),
+            **{f'beta_grad_{r}': (bwd_ms[r], plain_bwd_ms, *bounds['beta_grad'], lib_pair_ms,
+                                  grad_errs[r]) for r in ('warp', 'block')}))
 
     kernels = []
-    for name, key, line in (('ctc_loss_whole_t_alpha', 'alpha', 60),
-                            ('ctc_loss_whole_t_beta_grad', 'beta_grad', 83)):
+    for name, key, source, line in (
+            ('ctc_loss_whole_t_alpha', 'alpha', 'ctc_loss_whole_t.cu', 60),
+            ('ctc_loss_whole_t_beta_grad_warp', 'beta_grad_warp', 'ctc_loss.cu', 83),
+            ('ctc_loss_whole_t_beta_grad', 'beta_grad_block', 'ctc_loss_whole_t.cu', 83)):
         ms, plain_ms, bound, bound_by, lib_ms, err = records[0][key]
-        kernels.append(dict(name=name, route='cuda',
-                            source='convasr_tpu_torch/csrc/ctc_loss_whole_t.cu',
+        kernels.append(dict(name=name, route='cuda', source=f'convasr_tpu_torch/csrc/{source}',
                             replaces=f'convasr_tpu/ops/ctc_pallas.py:{line}',
-                            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
+                            launches=train_launches[name], max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                            library_ms=lib_ms))
     return kernels
 
 

@@ -1,8 +1,9 @@
-// Device helpers shared by the CTC loss kernels over the blank-interleaved
-// lattice: csrc/ctc_loss.cu (K1, time-chunked counterpart) and
-// csrc/ctc_loss_whole_t.cu (K2, whole-T counterpart). One thread block owns
-// one utterance row; each thread owns the states tid, tid + nt, ... of its
-// row (K of them, K a power of two).
+// Device helpers shared by the kernels over the blank-interleaved CTC
+// lattice: csrc/ctc_loss.cu (K1, time-chunked counterpart),
+// csrc/ctc_loss_whole_t.cu (K2, whole-T counterpart) and csrc/ctc_viterbi.cu
+// (K3). In the block kernels one thread block owns one utterance row; each
+// thread owns the states tid, tid + nt, ... of its row (K of them, K a power
+// of two).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,5 +77,56 @@ cudaError_t with_states_per_thread(int S, Launch launch) {
     default: return cudaErrorInvalidValue;
   }
 }
+
+// Copies ahead, shared by the kernels that walk a row's frames in chunks
+// (csrc/ctc_loss.cu's forward and warp backward, csrc/ctc_viterbi.cu's warp
+// kernel): 16-byte cp.async pieces from the chunk's start rounded down to 16
+// bytes, the last piece cut by its source size, so no layout is padded.
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The 4-byte word (0-3) of a 16-byte piece at which p lies.
+__device__ __forceinline__ int lead(const float* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) >> 2 & 3);
+}
+
+// Threads i, i + stride, ... copy the n floats at src into dst (16-byte
+// aligned) by cp.async of 16-byte pieces, the first from src rounded down to
+// 16 bytes (the caller's tensor starts on 16 bytes), the last reading no
+// further than src + n; src's first float lands at dst + lead(src).
+__device__ __forceinline__ void copy_ahead(float* dst, const float* src, int n, int i,
+                                           int stride) {
+  const int off = lead(src);
+  const char* base = reinterpret_cast<const char*>(src - off);
+  const int bytes = 4 * (off + n);
+  for (int q = i; 16 * q < bytes; q += stride)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + 4 * q)),
+                 "l"(base + 16 * q), "r"(min(16, bytes - 16 * q))
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until this thread's copies, all but the newest N groups, have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// p ? a : b as one select instruction (a ternary that picks between
+// registers by lane may be compiled into a branch)
+__device__ __forceinline__ float pick(bool p, float a, float b) {
+  float y;
+  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}\n"
+      : "=f"(y)
+      : "f"(a), "f"(b), "r"((int)p));
+  return y;
+}
+
+// floats of a chunk buffer of n floats copied from any 4-byte boundary
+__host__ __device__ inline int area(int n) { return (n + 6) / 4 * 4; }
 
 }  // namespace

@@ -111,50 +111,6 @@
 
 namespace {
 
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The 4-byte word (0-3) of a 16-byte piece at which p lies.
-__device__ __forceinline__ int lead(const float* p) {
-  return (int)(reinterpret_cast<uintptr_t>(p) >> 2 & 3);
-}
-
-// Threads i, i + stride, ... copy the n floats at src into dst (16-byte
-// aligned) by cp.async of 16-byte pieces, the first from src rounded down to
-// 16 bytes (the caller's tensor starts on 16 bytes), the last reading no
-// further than src + n; src's first float lands at dst + lead(src).
-__device__ __forceinline__ void copy_ahead(float* dst, const float* src, int n, int i,
-                                           int stride) {
-  const int off = lead(src);
-  const char* base = reinterpret_cast<const char*>(src - off);
-  const int bytes = 4 * (off + n);
-  for (int q = i; 16 * q < bytes; q += stride)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + 4 * q)),
-                 "l"(base + 16 * q), "r"(min(16, bytes - 16 * q))
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until this thread's copies, all but the newest N groups, have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// p ? a : b as one select instruction (a ternary that picks between
-// registers by lane may be compiled into a branch)
-__device__ __forceinline__ float pick(bool p, float a, float b) {
-  float y;
-  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}\n"
-      : "=f"(y)
-      : "f"(a), "f"(b), "r"((int)p));
-  return y;
-}
-
 // lse3 (ctc_lattice.cuh) as a select rather than an early return: the same
 // rule for out-of-reach arguments, and the plain version's operations in its
 // order, so that the float32 roundings of the large sums (|beta| grows by a
@@ -164,9 +120,6 @@ __device__ __forceinline__ float lse3_select(float a, float b, float c) {
   const float r = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
   return m <= NEG_INF / 2 ? NEG_INF : r;
 }
-
-// floats of a chunk buffer of n floats copied from any 4-byte boundary
-__host__ __device__ inline int area(int n) { return (n + 6) / 4 * 4; }
 
 // frames in the forward's ring on the path, chosen by the sweep of
 // chip_smoke.py (PERF.md); ops/ctc_loss.py reads it from this line

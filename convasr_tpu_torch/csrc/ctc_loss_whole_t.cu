@@ -46,6 +46,16 @@
 // which the wrapper checks; the atomics make the gradient agree with the
 // plain version to float32 rounding of a sum of at most L+1 terms in [0, 1],
 // not bit for bit. Several rows per block and TMA bulk copies are later work.
+//
+// Which kernel takes which lattice. K2b computes K1b's function with K1b's
+// arguments, and writes 0 on every frame of a row with xlen = 0 as K1b's
+// warp kernel does, so ops/ctc_loss_whole_t.py sends it K1b's route: a
+// lattice that ops/ctc_loss.beta_grad_warp_fits takes (S <= WARP_S_MAX of
+// csrc/ctc_loss.cu, 513) goes to K1b's warp kernel (ctc_beta_grad_warp of
+// csrc/ctc_loss.cu, frames copied a chunk ahead), which was faster on the
+// same batches; longer lattices, and wider classes, to ctc_beta_grad_whole_t
+// below. K2f (ctc_alpha_whole_t) takes every lattice. Both routes reach
+// exactly what smem_fits allows.
 #include "ctc_lattice.cuh"
 
 namespace {

@@ -172,3 +172,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     before = (port.ALPHA_LAUNCHES, port.BETA_GRAD_LAUNCHES)
     port.ctc_loss_whole_t(*t)
     assert (port.ALPHA_LAUNCHES, port.BETA_GRAD_LAUNCHES) == before
+
+
+# (L, C, what K1b's warp rule says) -> K2b's route
+ROUTE_CASES = [(128, 38, True), (256, 38, True), (257, 38, False), (700, 40, False),
+               (0, 38, True), (128, 7000, False)]
+
+
+@pytest.mark.parametrize('L, C, warp', ROUTE_CASES,
+                         ids=[f'L{L}_C{C}' for L, C, _ in ROUTE_CASES])
+def test_beta_grad_route_follows_the_warp_rule(L, C, warp, monkeypatch):
+    """K2b takes K1b's route: K1b's warp kernel exactly where
+    ops/ctc_loss.beta_grad_warp_fits takes the lattice (WARP_S_MAX read from
+    csrc/ctc_loss.cu, the library's shared-memory check stubbed with the
+    case's answer), the whole-T block kernel elsewhere."""
+    class Library:
+        @staticmethod
+        def ctc_loss_beta_grad_warp_fits(*args):
+            return int(warp)
+    monkeypatch.setattr(ctc_loss, '_library', Library)
+    assert port.beta_grad_route(L, C) == ('warp' if ctc_loss.beta_grad_warp_fits(L, C)
+                                          else 'block')
+    assert (port.beta_grad_route(L, C) == 'warp') == (warp and 2 * L + 1 <= ctc_loss.WARP_S_MAX)
+
+
+@pytest.mark.parametrize('route', ['warp', 'block'])
+def test_beta_grad_routes_refuse_cpu_tensors(route):
+    """Each K2b kernel is a card-only launch; neither the wrapper nor the
+    measurement route counts a launch on the CPU."""
+    lp, y, xlen, ylen = make_batch(np.random.RandomState(10), B=2, T=8)
+    t = [torch.from_numpy(a) for a in (lp, y, xlen, ylen)]
+    alpha, ll = port.alpha_whole_t_plain(*t, blank=6)
+    g = torch.ones(2)
+    before = (port.BETA_GRAD_LAUNCHES, port.BETA_GRAD_WARP_LAUNCHES)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        port._beta_grad_route(*t, alpha, ll, g, 6, route)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        port.beta_grad_kernel(*t, alpha, ll, g, 6)
+    assert (port.BETA_GRAD_LAUNCHES, port.BETA_GRAD_WARP_LAUNCHES) == before

@@ -21,15 +21,25 @@ def card():
     return torch.device('cuda')
 
 
-def make_batch(seed, B=4, T=24, C=7, L=5, blank=None, empty_row=False, full_row=True):
+def make_batch(seed, B=4, T=24, C=7, L=5, blank=None, empty_row=False, full_row=True,
+               constant=False, repeated=False, xlen_rows=()):
+    """A seeded batch. constant: every log-prob equal, so every predecessor
+    of every state ties; repeated: runs of one label, where skips are barred;
+    xlen_rows: the input lengths of the last rows."""
     rng = np.random.RandomState(seed)
     blank = C - 1 if blank is None else blank
     lp = torch.log_softmax(torch.from_numpy(rng.randn(B, T, C).astype(np.float32)), -1)
+    if constant:
+        lp = torch.full((B, T, C), -float(np.log(C)), dtype=torch.float32)
     labels = [c for c in range(C) if c != blank]
     y = rng.choice(labels, size=(B, L)).astype(np.int32)
+    if repeated:
+        y[:, 1::2] = y[:, 0:-1:2]
     xlen = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
     if full_row:
         xlen[0] = T
+    if xlen_rows:
+        xlen[-len(xlen_rows):] = xlen_rows
     ylen = rng.randint(1, L + 1, size=B).astype(np.int32)
     if empty_row:
         ylen[-1] = 0
@@ -43,23 +53,78 @@ CASES = dict(
     short_rows=dict(seed=3, B=4, T=30, C=6, L=6, full_row=False),
     non_last_blank=dict(seed=4, B=4, T=26, C=9, L=6, blank=0),
     repeated_labels=dict(seed=5, B=6, T=40, C=3, L=8, blank=1),
+    # every predecessor ties: the strict '>' keeps the lower move everywhere
+    tie_heavy=dict(seed=11, B=4, T=20, C=5, L=6, constant=True, repeated=True),
+    tie_heavy_skips=dict(seed=12, B=4, T=25, C=7, L=6, constant=True, empty_row=True),
+    xlen_0_and_1=dict(seed=13, B=5, T=18, xlen_rows=(0, 1)),
     many_states=dict(seed=6, B=3, T=700, C=40, L=700),   # 1401 states: 2 per thread
     states_16_per_thread=dict(seed=9, B=2, T=40, C=38, L=7000),
     states_32_per_thread=dict(seed=10, B=2, T=30, C=38, L=14000),  # near the shared-memory limit
+    # the route's crossover: S = WARP_S_MAX on the warp kernel, the next
+    # lattice (S + 2) on the block pair
+    crossover=dict(seed=14, B=3, T=90, C=38, L=(align.WARP_S_MAX - 1) // 2),
+    past_crossover=dict(seed=15, B=3, T=90, C=38, L=(align.WARP_S_MAX + 1) // 2),
+    # T frames of packed backpointers pass shared memory: the warp kernel's
+    # spill route, with one word a lane a frame and with two
+    spill=dict(seed=16, B=5, T=1900, C=38, L=20),
+    spill_two_words=dict(seed=17, B=3, T=1000, C=38, L=300),
+    unaligned_view=dict(seed=18, B=4, T=41, C=38, L=12, unaligned=True),
 )
+# the lattices the route sends to the block pair
+VITERBI_BLOCK_CASES = ('many_states', 'states_16_per_thread', 'states_32_per_thread',
+                       'past_crossover')
+
+
+def viterbi_launches():
+    return align.WARP_LAUNCHES, align.BLOCK_LAUNCHES
 
 
 @pytest.mark.parametrize('case', CASES)
 def test_viterbi_kernel_equals_plain(card, case):
-    lp, y, xlen, ylen, blank = make_batch(**CASES[case])
+    """The kernel the route names, bit-equal to the plain version in char
+    frames and final alpha, and the warp kernel also wherever it reaches
+    (S <= 1024) and the block pair everywhere, as measurement routes that
+    count nothing."""
+    c = dict(CASES[case])
+    unaligned = c.pop('unaligned', False)
+    lp, y, xlen, ylen, blank = make_batch(**c)
     frames, final = ctc_alignment(lp, y, xlen, ylen, blank=blank, return_final=True)
-    before = align.KERNEL_LAUNCHES
-    k_frames, k_final = align.ctc_alignment_kernel(
-        *(t.to(card) for t in (lp, y, xlen, ylen)), blank=blank, return_final=True)
+    on_card = [t.to(card) for t in (lp, y, xlen, ylen)]
+    if unaligned:                     # log-probs that do not start on 16 bytes: copied first
+        shifted = torch.empty(lp.numel() + 1, device=card)[1:].view(lp.shape)
+        shifted.copy_(on_card[0])
+        assert shifted.data_ptr() % 16 != 0
+        on_card[0] = shifted
+    route = align.viterbi_route(y.shape[1], lp.shape[2])
+    assert route == ('block' if case in VITERBI_BLOCK_CASES else 'warp')
+    before = viterbi_launches()
+    k_frames, k_final = align.ctc_alignment_kernel(*on_card, blank=blank, return_final=True)
     torch.cuda.synchronize()
-    assert align.KERNEL_LAUNCHES == before + 1
+    assert viterbi_launches() == (before[0] + (route == 'warp'), before[1] + (route == 'block'))
     np.testing.assert_array_equal(k_frames.cpu().numpy(), frames.numpy())
     np.testing.assert_array_equal(k_final.cpu().numpy(), final.numpy())
+    routes = ['block'] + (['warp'] if 2 * y.shape[1] + 1 <= 1024 else [])
+    for other in routes:
+        k_frames, k_final = align._alignment_route(*on_card, blank=blank, route=other,
+                                                   return_final=True)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k_frames.cpu().numpy(), frames.numpy())
+        np.testing.assert_array_equal(k_final.cpu().numpy(), final.numpy())
+    assert viterbi_launches() == (before[0] + (route == 'warp'), before[1] + (route == 'block'))
+
+
+def test_viterbi_route_at_the_crossover(card):
+    """The library's rule agrees with the constant read from the source: the
+    warp kernel up to WARP_S_MAX states, the block pair past it; the spill
+    route exactly where T frames of packed backpointers pass shared memory."""
+    lib = align._library()
+    L = (align.WARP_S_MAX - 1) // 2
+    assert align.viterbi_route(L, 38) == 'warp' and lib.ctc_viterbi_warp_fits(L, 38) == 1
+    assert align.viterbi_route(L + 1, 38) == 'block' and lib.ctc_viterbi_warp_fits(L + 1, 38) == 0
+    assert align.viterbi_route(128, 20000) == 'block'     # the warp kernel's ring passes 227 KB
+    assert lib.ctc_viterbi_warp_spill_words(301, 128, 38) == 0      # the path's: on chip
+    assert lib.ctc_viterbi_warp_spill_words(1500, 400, 38) == 1500 * 64
+    assert lib.ctc_viterbi_warp_spill_words(1900, 20, 38) == 1900 * 32
 
 
 def test_viterbi_kernel_refuses_too_many_states(card):
@@ -70,9 +135,9 @@ def test_viterbi_kernel_refuses_too_many_states(card):
 
 def test_auto_dispatches_to_kernel(card):
     lp, y, xlen, ylen, blank = make_batch(seed=8)
-    before = align.KERNEL_LAUNCHES
+    before = viterbi_launches()
     out = align.ctc_alignment_auto(*(t.to(card) for t in (lp, y, xlen, ylen)), blank=blank)
-    assert out.is_cuda and align.KERNEL_LAUNCHES == before + 1
+    assert out.is_cuda and viterbi_launches() == (before[0] + 1, before[1])
 
 
 # --- CTC loss kernels (csrc/ctc_loss.cu) -----------------------------------
@@ -485,8 +550,20 @@ WHOLE_T_CASES = dict(
 )
 
 
+# the lattice K2b's route (K1b's) sends to the whole-T block kernel
+WHOLE_T_BLOCK_CASES = ('many_states',)
+
+
+def whole_t_launches():
+    from convasr_tpu_torch.ops import ctc_loss_whole_t as k2
+    return k2.ALPHA_LAUNCHES, k2.BETA_GRAD_WARP_LAUNCHES, k2.BETA_GRAD_LAUNCHES
+
+
 @pytest.mark.parametrize('case', WHOLE_T_CASES)
 def test_whole_t_kernels_equal_plain(card, case):
+    """K2f and the K2b kernel its route names against the plain versions,
+    within K1's tolerances, and K2b's other kernel too where it reaches, as a
+    measurement route that counts nothing."""
     from convasr_tpu_torch.ops import ctc_loss, ctc_loss_whole_t as k2
     lp, y, xlen, ylen, blank = loss_batch(**WHOLE_T_CASES[case])
     if case == 'zero_input_length':               # also a row of xlen 0 that takes frame 0
@@ -495,11 +572,14 @@ def test_whole_t_kernels_equal_plain(card, case):
     alpha, ll = k2.alpha_whole_t_plain(lp, y, xlen, ylen, blank)
     grad = ctc_loss.beta_grad_plain(lp, y, xlen, ylen, alpha, ll, g, blank)
     on_card = [t.to(card) for t in (lp, y, xlen, ylen)]
-    before = (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES)
+    route = k2.beta_grad_route(y.shape[1], lp.shape[2])
+    assert route == ('block' if case in WHOLE_T_BLOCK_CASES else 'warp')
+    before = whole_t_launches()
     k_alpha, k_ll = k2.alpha_kernel(*on_card, blank)
     k_grad = k2.beta_grad_kernel(*on_card, k_alpha, k_ll, g.to(card), blank)
     torch.cuda.synchronize()
-    assert (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert whole_t_launches() == (before[0] + 1, before[1] + (route == 'warp'),
+                                  before[2] + (route == 'block'))
     feasible = ll > -5e29
     assert torch.equal(k_ll.cpu() > -5e29, feasible)
     if case == 'zero_input_length':
@@ -509,6 +589,13 @@ def test_whole_t_kernels_equal_plain(card, case):
     # gamma in [0, 1] summed per class with shared-memory atomics in any order
     np.testing.assert_allclose(k_grad.cpu().numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
     assert (k_grad.cpu()[~feasible | (xlen == 0)] == 0).all()
+    reach = ['block'] + (['warp'] if 2 * y.shape[1] + 1 <= 1024 else [])
+    for other in reach:
+        got = k2._beta_grad_route(*on_card, k_alpha, k_ll, g.to(card), blank, other).cpu()
+        np.testing.assert_allclose(got.numpy(), grad.numpy(), rtol=1e-3, atol=1e-4)
+        assert (got[~feasible | (xlen == 0)] == 0).all()
+    assert whole_t_launches() == (before[0] + 1, before[1] + (route == 'warp'),
+                                  before[2] + (route == 'block'))
 
 
 def test_whole_t_guard_raises_on_the_card(card):
@@ -521,21 +608,30 @@ def test_whole_t_guard_raises_on_the_card(card):
     assert k2.ALPHA_LAUNCHES == before
 
 
-def test_ctc_loss_whole_t_runs_both_kernels(card):
+@pytest.mark.parametrize('route,L', [('warp', 5), ('block', 300)])
+def test_ctc_loss_whole_t_runs_both_kernels(card, route, L):
+    """ctc_loss_whole_t forward and backward on each route of K2b (S 11 on
+    K1b's warp kernel, S 601 past WARP_S_MAX on the whole-T block kernel),
+    with a row of xlen 0 whose loss is finite and whose gradient is 0."""
     from convasr_tpu_torch.ops import ctc_loss_whole_t as k2
-    lp, y, xlen, ylen, blank = loss_batch(seed=49, B=5, T=33, zero_xlen_row=True)
+    lp, y, xlen, ylen, blank = loss_batch(seed=49, B=5, T=33 if L == 5 else 700, L=L,
+                                          zero_xlen_row=True)
+    xlen[0], ylen[0] = 0, 1           # takes frame 0: a finite loss
+    assert k2.beta_grad_route(L, lp.shape[2]) == route
     x = lp.to(card).requires_grad_()
-    before = (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES)
+    before = whole_t_launches()
     loss = k2.ctc_loss_whole_t(x, *(t.to(card) for t in (y, xlen, ylen)), blank=blank)
     loss.mean().backward()            # an expanded (stride 0) cotangent
     torch.cuda.synchronize()
-    assert (k2.ALPHA_LAUNCHES, k2.BETA_GRAD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert whole_t_launches() == (before[0] + 1, before[1] + (route == 'warp'),
+                                  before[2] + (route == 'block'))
     x_cpu = lp.clone().requires_grad_()
     ref = k2.ctc_loss_whole_t(x_cpu, y, xlen, ylen, blank=blank)
     ref.mean().backward()
-    assert torch.isfinite(ref).all()  # the row of xlen 0 and ylen 0 takes frame 0's blank
+    assert torch.isfinite(ref[[0, -1]]).all()  # the rows of xlen 0 take frame 0
     np.testing.assert_allclose(loss.detach().cpu().numpy(), ref.detach().numpy(), rtol=1e-5)
     np.testing.assert_allclose(x.grad.cpu().numpy(), x_cpu.grad.numpy(), rtol=1e-3, atol=1e-4)
+    assert (x.grad[0] == 0).all() and (x.grad[-1] == 0).all()
 
 
 # --- device beam (ops/beam_device.py) on the card against the CPU ----------
