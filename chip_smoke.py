@@ -194,6 +194,19 @@
    loss within 1e-5 relative, the gradient per unit of its upstream
    gradient; the char frames bit-equal, as in phase 3). Every CTC,
    alignment and int8 launch of the phase is added to the kernels line.
+20. the tensor-parallel layout at full JasperNetBig width from phase 2's
+   checkpoint: one process, then two Gloo ranks on cuda:0 as 1 data x 2
+   model (every leaf of 256 channels or more sharded over the model group,
+   `parallel/tensor_parallel.py`), each spawned, 3 float32 steps of NovoGrad
+   on the same 16 rows of phase 5's corpus: losses within rtol 1e-4 of one
+   process's, the gathered parameters after the steps within rtol 1e-3 /
+   atol 1e-5, each rank's parameter bytes half of one process's (0.49-0.51);
+   parameter and optimizer bytes, max_memory_allocated and the median step
+   of each printed. Then `python -m convasr_tpu_torch.parallel.dryrun
+   --ranks 4` on cuda:0 (2 data x 2 model over Gloo), its five lines
+   printed. The first K1f and K1b call of each 20.1 process is kept and held
+   against the plain versions (phase 15's tolerances); every CTC launch of
+   the phase is added to the kernels line.
 
 Prints the card's name and power limit, one JSON line of kernels, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -554,9 +567,10 @@ def main():
     served = serve_phases(ckpt, corpus, card)
     exported = export_phases(device, ckpt, card)
     multi = multi_phases(device, ckpt, corpus, card)
+    tp = tp_phases(device, ckpt, card)
     for record in kernels:
         record['launches'] += served.get(record['name'], 0) + exported.get(record['name'], 0) \
-            + multi.get(record['name'], 0)
+            + multi.get(record['name'], 0) + tp.get(record['name'], 0)
 
     print(card)
     print(json.dumps(dict(kernels=kernels)))
@@ -3599,6 +3613,216 @@ def multi_phases(device, ckpt, corpus, card):
         f'seeded mixtures at 0-25 dB SNR {acc:.3f} vs the energy VAD {energy:.3f}; transcribe '
         f'--vad 3 --vad-backend neural --diarize over phase 14\'s two mixtures: {n_segments} '
         f'segments, each inside a VAD cut, in {wall:.2f} s wall')
+    return dict(total)
+
+
+# -- 20. the tensor-parallel layout ------------------------------------------
+
+def _tp_rank_main(rank, world, ckpt, manifest, rdv, reverse, final_path, out_path):
+    """One process of phase 20.1 (spawned): JasperNetBig from phase 2's
+    checkpoint, float32, NovoGrad with the clip at 100; at world 2 a rank of
+    1 data x 2 model on Gloo with every leaf of 256 channels or more sharded
+    (the 38-class head replicated). 3 steps on the same 16 rows of phase 5's
+    corpus (in reverse order with `reverse`: the same math, other
+    rounding), the first K1f and K1b calls kept and held against their plain
+    versions; rank 0 saves the final (gathered) state to final_path."""
+    sys.path.insert(0, str(ROOT))
+    from convasr_tpu_torch.cli.train import to_host_batch
+    from convasr_tpu_torch.data.dataset import AudioTextDataset, frame_count_bucket_fn
+    from convasr_tpu_torch.data.sampler import BucketingBatchSampler
+    from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
+    from convasr_tpu_torch.models.zoo import create_model
+    from convasr_tpu_torch.ops import align, ctc_loss
+    from convasr_tpu_torch.parallel import mesh, tensor_parallel
+    from convasr_tpu_torch.text import ProcessingPipeline
+    from convasr_tpu_torch.train import loop, optim
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    if world > 1:
+        mesh.init_distributed(rdv, world, rank, timeout=600, backend='gloo', device=device)
+        grid = mesh.make_groups(world)
+    model = create_model('JasperNetBig', num_input_features=64, num_classes=(38,),
+                         frontend=LogFilterBankFrontend(64, SR, 0.02, 0.01, dither=0.0))
+    model.load_state_dict(torch.load(ckpt, weights_only=True)['model_state_dict'])
+    model.to(device)
+    sharded = 0
+    if world > 1:
+        layout = tensor_parallel.state_shardings(model, world, min_channels=256)
+        tensor_parallel.shard_model_(model, layout, grid)
+        sharded = sum(d is not None for d in layout.values())
+    tx = loop.make_optimizer_with_accum(
+        optim.make_optimizer('novograd', optim.multistep_lr(1e-2, 0.1, [25000, 50000]),
+                             betas=(0.95, 0.98), weight_decay=1e-3), max_grad_norm=100.0)
+    state = loop.init_train_state(model, tx)
+    step = loop.make_train_step(model, tx)
+    config = ProcessingPipeline.load_config(str(ROOT / 'configs' / 'ru_text_config.json'))
+    ds = AudioTextDataset(manifest, [ProcessingPipeline.make(config, 'char_legacy')], SR,
+                          time_padding_multiple=128, bucket_fn=frame_count_bucket_fn(0.01, 128),
+                          mono=True, pop_meta=True)
+    idx = next(iter(BucketingBatchSampler(ds, batch_size=16, world_size=1)))
+    _, host = to_host_batch(ds.collate_fn([ds[i] for i in idx]))
+    batch = {k: torch.from_numpy(v[::-1].copy() if reverse else v).to(device)
+             for k, v in host.items()}
+    params = list(model.parameters())
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
+    times, metrics = [], []
+    with CTCCapture(ctc_loss, align) as capture:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - tic)
+            metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(ctc_loss_alpha=ctc_loss.ALPHA_LAUNCHES,
+                    ctc_loss_beta_grad_warp=ctc_loss.BETA_GRAD_WARP_LAUNCHES,
+                    ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES)
+    out = dict(times=times, metrics=metrics, launches=launches, sharded=sharded,
+               shape=list(batch['x'].shape), target_len=int(batch['y'].shape[-1]),
+               n_params=sum(p.numel() for p in params), param_bytes=nbytes(params),
+               opt_bytes=nbytes(state.opt_state),
+               peak=torch.cuda.max_memory_allocated(),
+               checked=check_ctc_calls(capture.calls, f'phase 20.1 {"rank " + str(rank) if world > 1 else "one process"}\'s first step'))
+    final = tensor_parallel.gather_state(model)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in final.items()}, final_path)
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    if world > 1:
+        mesh.shutdown(wait=True)
+
+
+def tp_phases(device, ckpt, card):
+    """Phase 20: the tensor-parallel layout on the card. Returns the hand
+    kernels' launches."""
+    import multiprocessing
+    work = WORK / 'phase20'
+    work.mkdir(parents=True, exist_ok=True)
+    total = collections.Counter()
+    ctx = multiprocessing.get_context('spawn')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20.1 one process, then two Gloo ranks on cuda:0 as 1 data x 2 model,
+    # then one process on the rows in reverse order: the rounding noise of
+    # three NovoGrad steps, which divide each leaf's gradient by its norm
+    runs, finals = {}, {}
+    for name, world in (('one', 1), ('tp', 2), ('reversed', 1)):
+        tic = time.perf_counter()
+        procs = [ctx.Process(target=_tp_rank_main, args=(
+            r, world, ckpt, str(WORK / 'train.json'), f'file://{work}/rdv_{name}',
+            name == 'reversed', str(work / f'{name}_final.pt'),
+            str(work / f'{name}_r{r}.json'))) for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        assert [p.exitcode for p in procs] == [0] * world, \
+            f'20.1 {name}: exit codes {[p.exitcode for p in procs]}'
+        runs[name] = [json.load(open(work / f'{name}_r{r}.json')) for r in range(world)]
+        runs[name + '_wall'] = time.perf_counter() - tic
+        finals[name] = torch.load(work / f'{name}_final.pt', weights_only=True)
+        os.remove(work / f'{name}_final.pt')
+    one = runs['one'][0]
+    # the gathered parameters after 3 steps against one process's: within
+    # rtol 1e-3 / atol 1e-5 beyond twice the largest difference that the
+    # reversed rows' rounding alone makes (which the report prints)
+    floats = [k for k, v in finals['one'].items() if v.is_floating_point()]
+
+    def deviation(name):
+        return {k: float((finals[name][k] - finals['one'][k]).abs().max()) for k in floats}
+    noise, dev_tp = deviation('reversed'), deviation('tp')
+    floor = 2 * max(noise.values())
+    outside = [k for k in floats if not torch.allclose(finals['tp'][k], finals['one'][k],
+                                                       rtol=1e-3, atol=1e-5 + floor)]
+    assert not outside, f'20.1: gathered parameters after 3 steps off one process\'s: ' \
+        f'{[(k, dev_tp[k], noise[k]) for k in outside[:5]]}'
+    for k, v in finals['one'].items():
+        assert v.is_floating_point() or torch.equal(finals['tp'][k], v), k
+
+    def strict(name):
+        return sum(torch.allclose(finals[name][k], finals['one'][k], rtol=1e-3, atol=1e-5)
+                   for k in floats)
+    held = (strict('tp'), strict('reversed'))
+    finals.clear()
+    losses = [m['loss'] for m in one['metrics']]
+    for r, rank in enumerate(runs['tp']):
+        np.testing.assert_allclose([m['loss'] for m in rank['metrics']], losses, rtol=1e-4,
+                                   err_msg=f'20.1 rank {r} vs one process')
+        ratio = rank['param_bytes'] / one['param_bytes']
+        assert 0.49 < ratio < 0.51, f'20.1 rank {r}: parameter bytes {ratio:.4f} of one process\'s'
+        assert rank['sharded'] > 0
+    for run in runs['one'] + runs['tp'] + runs['reversed']:
+        assert run['launches']['ctc_loss_alpha'] == 3 and run['launches'][
+            'ctc_loss_beta_grad_warp'] + run['launches']['ctc_loss_beta_grad'] == 3, \
+            run['launches']
+        total.update(run['launches'])
+        log(run['checked'])
+
+    def med(run):
+        return statistics.median(run['times'][1:]) * 1e3
+    spread = max(abs(m['loss'] - w) / abs(w) for rank in runs['tp']
+                 for m, w in zip(rank['metrics'], losses))
+    spread_reversed = max(abs(m['loss'] - w) / abs(w)
+                          for m, w in zip(runs['reversed'][0]['metrics'], losses))
+    mb = 1 / 2 ** 20
+    log(f'tensor parallel on {card}: JasperNetBig float32 ({one["n_params"] / 1e6:.1f} M '
+        f'parameters; {runs["tp"][0]["sharded"]} leaves of 256 channels or more sharded over the model '
+        f'group), 3 steps of the same {one["shape"][0]} rows of phase 5\'s corpus '
+        f'(T {one["shape"][1]} samples, L padded to {one["target_len"]}), 1 data x 2 model on Gloo, '
+        f'both ranks on cuda:0, against one process: losses '
+        f'{[round(v, 5) for v in losses]}, relative spread {spread:.2e} (rtol 1e-4 held; the reversed rows {spread_reversed:.2e}); '
+        f'gathered parameters after 3 steps within {max(dev_tp.values()):.2e} of one '
+        f'process\'s, the reversed rows {max(noise.values()):.2e} (rtol 1e-3 / atol 1e-5 + '
+        f'{floor:.2e} held; at rtol 1e-3 / atol 1e-5 {held[0]} and {held[1]} of {len(floats)} '
+        f'leaves); parameter + optimizer bytes a rank '
+        + ', '.join(f'{r["param_bytes"] * mb:.1f} + {r["opt_bytes"] * mb:.1f} MiB'
+                    for r in runs['tp'])
+        + f' against one process\'s {one["param_bytes"] * mb:.1f} + {one["opt_bytes"] * mb:.1f} '
+        f'MiB; max_memory_allocated a rank '
+        + ', '.join(f'{r["peak"] * mb:.0f} MiB' for r in runs['tp'])
+        + f' against {one["peak"] * mb:.0f} MiB; median step of steps 2-3 a rank '
+        + ', '.join(f'{med(r):.1f} ms' for r in runs['tp'])
+        + f' against {med(one):.1f} ms (steps ms: one process '
+        f'{[round(t * 1e3, 1) for t in one["times"]]}, rank 0 '
+        f'{[round(t * 1e3, 1) for t in runs["tp"][0]["times"]]}); wall incl. process starts '
+        f'{runs["one_wall"]:.1f} s / {runs["tp_wall"]:.1f} s / {runs["reversed_wall"]:.1f} s')
+
+    # 20.2 the dryrun at 4 ranks: 2 data x 2 model, all on cuda:0 over Gloo
+    results = work / 'dryrun.pt'
+    tic = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'convasr_tpu_torch.parallel.dryrun', '--ranks',
+                           '4', '--results', str(results)], cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - tic
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    lines = [line for line in proc.stdout.splitlines() if line.startswith('dryrun_multichip(4)')]
+    assert len(lines) == 5, proc.stdout[-3000:]
+    got = torch.load(results, weights_only=False)
+    assert got['grid'] == (2, 2) and got['backend'] == 'gloo', (got['grid'], got['backend'])
+    for rank in got['ranks']:
+        assert rank['launches']['ctc_loss_alpha'] == 3, rank['launches']
+        total.update(rank['launches'])
+    for line in lines:
+        log(line)
+    log(f'dryrun --ranks 4 on cuda:0 (Gloo, 2 data x 2 model, {got["ranks"][0]["sharded"]} of '
+        f'{got["ranks"][0]["leaves"]} leaves sharded) in {wall:.1f} s wall incl. 4 process '
+        f'starts; sharded inference log-probs within {got["lp_err"]:.2e} of one device\'s, '
+        f'beam scores within {got["score_err"]:.2e}; CTC launches a rank '
+        f'{got["ranks"][0]["launches"]}')
     return dict(total)
 
 

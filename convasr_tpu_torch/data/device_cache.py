@@ -10,7 +10,11 @@ streaming collate pads, data/dataset.py collate_fn); xlen is the valid
 fraction of that length. The replicated layout (`upload`) holds every bucket
 on every card; the sharded one (`upload_sharded`) holds rank r's block of
 rows [r*N/W, (r+1)*N/W) of each bucket, and `sharded_gather` assembles each
-rank's rows with one all-reduce over the process group.
+rank's rows with one all-reduce over the process group. Under a data x model
+grid (parallel/mesh.make_groups) r and W are the data index and the count of
+data indices, and the group is the data group: the model ranks of one data
+index hold the same block and take the same rows, as the JAX package's
+P('data') cache layout does on a 2-D mesh.
 
 The JAX package's cached multi-step (a lax.scan over K gathered steps) is a
 loop of cached steps here, as --steps-per-dispatch is (cli/train.py).
@@ -132,20 +136,22 @@ def gather_batch(cache, rows):
                 y=cache['y'][rows], ylen=cache['ylen'][rows])
 
 
-def sharded_gather(cache_blk, rows, rank: int, world: int):
+def sharded_gather(cache_blk, rows, rank: int, world: int, group=None):
     """This rank's batch from a cache uploaded with `upload_sharded`.
 
-    rows: this rank's (B/W,) row indices within the bucket. Each rank takes
+    rows: this rank's (B/W,) row indices within the bucket; rank, world: its
+    data index and the count of data indices; group: the data group (None:
+    the default group). Each rank takes
     the global (B,) row vector (an all-gather), gathers the rows it owns with
     zeros elsewhere, widened to int32 (a Gloo all-reduce has no int16 on
     every build), sums over the group and keeps its own B/W slice. O(B*T) a
     step, and exact: one rank only adds to any row."""
     import torch.distributed as dist
     # the row vector is tiny; Gloo all-gathers it on the host
-    host = dist.get_backend() == 'gloo'
+    host = dist.get_backend(group) == 'gloo'
     local = rows.cpu() if host else rows.contiguous()
     parts = [torch.empty_like(local) for _ in range(world)]
-    dist.all_gather(parts, local)
+    dist.all_gather(parts, local, group=group)
     rows_all = torch.cat(parts).to(rows.device)
     nloc = cache_blk['x'].shape[0]
     li = rows_all.to(torch.int64) - rank * nloc
@@ -159,6 +165,6 @@ def sharded_gather(cache_blk, rows, rank: int, world: int):
         if g.dtype == torch.int16:
             g = g.to(torch.int32)
         g = torch.where(hit.reshape((B,) + (1,) * (g.ndim - 1)), g, torch.zeros_like(g))
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
         out[k] = g[rank * bl:(rank + 1) * bl].to(dtype)
     return out

@@ -23,6 +23,15 @@ With `remat`, each block's activations are recomputed in the backward pass
 in nn.remat. The recompute replays the generator from the state it had when
 the block first ran, so its dropout masks are the same, and leaves the batch
 norms' running statistics alone, so they move once.
+
+Under the tensor-parallel layout (parallel/tensor_parallel.shard_model_) a
+ConvBn whose leaves are sharded computes its own share of the output
+channels and keeps them sharded through batch norm, the residual adds, the
+nonlinearity, dropout and the temporal mask; each conv and the head read the
+whole activation, gathered once over the model group (`Whole`). Batch norm's
+statistics are global over the data group, and dropout draws the whole
+tensor's mask and keeps this rank's channels, so the masks equal one
+process's.
 """
 import contextlib
 import typing
@@ -39,7 +48,7 @@ from ..frontend.logmel import (
 )
 from ..frontend.augment import spec_augment as apply_spec_augment
 from ..infra.utils import wide_float
-from ..parallel import mesh
+from ..parallel import mesh, tensor_parallel
 
 
 def check_xlen(xlen, batch: int):
@@ -100,12 +109,22 @@ def _apply_temporal_mask(x, lengths_fraction):
     return x * temporal_mask(x.shape[-1], lengths)[:, None, :].to(x.dtype)
 
 
-def _dropout(x, rate: float, generator: typing.Optional[torch.Generator]):
+def _dropout(x, rate: float, generator: typing.Optional[torch.Generator],
+             sharded: bool = False):
     """flax's Dropout: keep with probability 1 - rate, scale kept values by
-    1 / (1 - rate); the mask comes from `generator` when one is given."""
-    if generator is None:
+    1 / (1 - rate); the mask comes from `generator` when one is given. A
+    `sharded` x (B, C / n_model, T) takes its channels of the whole tensor's
+    mask, drawn from the generator every model rank shares."""
+    if sharded:
+        shape = list(x.shape)
+        shape[1] *= tensor_parallel.model_world()
+        keep = tensor_parallel.local_channels(
+            torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+                1.0 - rate, generator=generator))
+    elif generator is None:
         return F.dropout(x, rate, training=True)
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    else:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
     return x * keep / (1.0 - rate)
 
 
@@ -122,7 +141,7 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if mesh.active():
+        if mesh.data_world() > 1:
             return self._forward_global(x)
         # torch's kernel updates copies (autograd keeps them for the backward)
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -140,19 +159,21 @@ class BatchNorm(nn.BatchNorm1d):
         return y
 
     def _forward_global(self, x):
-        """Training mode over a process group of world > 1: the statistics of
-        the global batch, as GSPMD gives the JAX package. The per-channel sum
-        and count, then the sum of squared deviations from the global mean,
-        each summed over the ranks by a differentiable all-reduce; normalised
-        with the global mean and biased variance. The recompute of a
-        rematerialised block all-reduces them again."""
+        """Training mode over several data indices: the statistics of the
+        global batch, as GSPMD gives the JAX package. The per-channel sum and
+        count, then the sum of squared deviations from the global mean, each
+        summed over the data group (the ranks that hold these channels of
+        the other rows) by a differentiable all-reduce; normalised with the
+        global mean and biased variance. The recompute of a rematerialised
+        block all-reduces them again."""
         dims = [0, 2] if x.ndim == 3 else [0]
         shape = [1, -1] + [1] * (x.ndim - 2)
         count = torch.tensor([float(x.numel() // x.shape[1])], dtype=x.dtype, device=x.device)
-        s = mesh.all_reduce_sum(torch.cat([x.sum(dim=dims), count]))
+        group = mesh.grid().data
+        s = mesh.all_reduce_sum(torch.cat([x.sum(dim=dims), count]), group)
         n = s[-1]
         mean = s[:-1] / n
-        var = mesh.all_reduce_sum(((x - mean.reshape(shape)) ** 2).sum(dim=dims)) / n
+        var = mesh.all_reduce_sum(((x - mean.reshape(shape)) ** 2).sum(dim=dims), group) / n
         y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
         y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
         if self.update_stats:
@@ -248,6 +269,10 @@ class ConvBn(nn.Module):
     their own 1x1 conv + BN (identity for the 'flat' topology) and are added
     before the activation on the last repeat only."""
 
+    # under the tensor-parallel layout: whether the output channels are
+    # sharded over the model group (set by tensor_parallel.shard_model_)
+    tp: typing.Optional[bool] = None
+
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, dilation=1,
                  dropout=0.0, groups=1, repeat=1, separable=False,
                  num_channels_residual=(), temporal_mask=True, nonlinearity=('relu',),
@@ -272,21 +297,29 @@ class ConvBn(nn.Module):
 
     def forward(self, x, lengths_fraction=None, residual: typing.Sequence = (),
                 generator: typing.Optional[torch.Generator] = None):
-        """x and residuals: (B, C, T); generator: the dropout masks' source."""
+        """x and residuals: (B, C, T); generator: the dropout masks' source.
+        Under the tensor-parallel layout x and the residuals are
+        tensor_parallel.Whole activations, and the output is this rank's
+        channels where the block is sharded."""
         assert len(residual) == len(self.num_channels_residual)
+        tp = self.tp
         for i in range(self.repeat):
+            if tp is not None:
+                # each conv reads the whole activation
+                x = (x if i == 0 else tensor_parallel.Whole(x, tp)).feed(tp)
             x = getattr(self, f'conv{i}')(x)
             x = getattr(self, f'bn{i}')(wide_float(x))
             if i == self.repeat - 1:
                 for j, r in enumerate(residual):
                     if self.num_channels_residual[j] is None:
-                        x = x + r.to(x.dtype)
+                        x = x + (r if tp is None else r.local).to(x.dtype)
                     else:
-                        r = _conv(getattr(self, f'conv_residual{j}'), r, self.dtype)
+                        r = _conv(getattr(self, f'conv_residual{j}'),
+                                  r if tp is None else r.feed(tp), self.dtype)
                         x = x + getattr(self, f'bn_residual{j}')(wide_float(r))
             x = apply_nonlinearity(x, self.nonlinearity)
             if self.dropout > 0 and self.training:
-                x = _dropout(x, self.dropout, generator)
+                x = _dropout(x, self.dropout, generator, sharded=bool(tp))
             if self.temporal_mask:
                 x = _apply_temporal_mask(x, lengths_fraction)
         return x
@@ -294,6 +327,8 @@ class ConvBn(nn.Module):
 
 class Decoder(nn.Module):
     """CTC head(s): 1x1 conv char head, optional 2-layer BPE head."""
+
+    tp: typing.Optional[bool] = None      # as ConvBn.tp, for head0
 
     def __init__(self, in_channels, num_classes, head_type=None, dtype=torch.float32):
         super().__init__()
@@ -305,6 +340,11 @@ class Decoder(nn.Module):
             self.bpe_conv1 = ConvBn(in_channels, num_classes[1], 15, dtype=dtype)
 
     def forward(self, x, generator=None):
+        """x: (B, C, T), a tensor_parallel.Whole under the tensor-parallel
+        layout (the logits come back whole)."""
+        if self.tp is not None:
+            y0 = _conv(self.head0, x.feed(self.tp), self.dtype)
+            return (tensor_parallel.Whole(y0, self.tp).full,)
         y0 = _conv(self.head0, x, self.dtype)
         if self.head_type is None:
             return (y0,)
@@ -444,6 +484,9 @@ class JasperNet(nn.Module):
                                        num_freq_masks=n_f, freq_mask_width=w_f,
                                        time_warp_width=rest[0] if rest else 0, lengths=lengths)
             x = x.to(self.dtype).transpose(1, 2)                      # (B, C, T)
+            tp = tensor_parallel.is_sharded(self)
+            if tp:
+                x = tensor_parallel.Whole(x, False)
 
             remat = self.remat and torch.is_grad_enabled()
             residual: list = []
@@ -453,6 +496,8 @@ class JasperNet(nn.Module):
                     x = rematerialized(block, x, xlen, tuple(residual), generator)
                 else:
                     x = block(x, xlen, tuple(residual), generator)
+                if tp:
+                    x = tensor_parallel.Whole(x, block.tp)
                 if i >= self.num_blocks - num_epilogue - 1:             # no residuals for epilogue
                     residual = []
                 elif self.residual == 'dense':

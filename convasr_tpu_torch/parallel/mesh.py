@@ -10,7 +10,16 @@ process group (models/jasper.BatchNorm, through `all_reduce_sum`), and the
 train step all-reduces the flattened gradients (train/loop.py). So
 `make_mesh`, `batch_sharding`, `replicated`, `shard_batch` and
 `make_global_batch` have no counterpart here: no process ever holds another
-process's rows. The tensor-parallel layout (`state_shardings`) is not ported.
+process's rows.
+
+The JAX package's data x model mesh (`make_mesh(n_data, n_model)`) is a grid
+of process groups here (`make_groups`): rank r has data index r // n_model
+and model index r % n_model, the row-major order of the JAX mesh. The data
+group (one model index) takes the batch's rows, the gradient mean and the
+batch-norm statistics; the model group (one data index) shares one data
+shard and holds the channels that `state_shardings` splits over it
+(parallel/tensor_parallel.py). Without `make_groups` every rank is its own
+data index and the model group has one member.
 
 Collectives on tensors run on the default group: NCCL across cards, Gloo on
 the CPU and for several ranks on one card (NCCL refuses two ranks on one
@@ -31,6 +40,19 @@ import torch
 import torch.distributed as dist
 
 _CONTROL = None   # the Gloo group of the host-side collectives
+
+
+class Grid(typing.NamedTuple):
+    """This rank's place in the data x model grid of `make_groups`."""
+    n_data: int
+    n_model: int
+    data_index: int
+    model_index: int
+    data: typing.Any      # the data group (None: the default group)
+    model: typing.Any     # the model group (None at n_model 1)
+
+
+_GRID: typing.Optional[Grid] = None
 
 
 def init_distributed(coordinator_address: str, num_processes: int, process_id: int,
@@ -82,12 +104,50 @@ def shutdown(wait: bool = False):
     """Leaves the process group (a no-op without one); with `wait`, after a
     barrier, so that no rank tears the group down under a peer that is still
     in a collective."""
-    global _CONTROL
+    global _CONTROL, _GRID
     if dist.is_available() and dist.is_initialized():
         if wait:
             barrier('shutdown')
         dist.destroy_process_group()
-    _CONTROL = None
+    _CONTROL = _GRID = None
+
+
+def make_groups(n_model: int) -> Grid:
+    """The data x model grid over the process group (the counterpart of
+    convasr_tpu/parallel/mesh.make_mesh(n_data, n_model)): n_data = world /
+    n_model; rank r has data index r // n_model and model index r % n_model.
+    Every rank makes every group (dist.new_group is collective) and keeps its
+    own. Raises unless n_model divides the world size."""
+    global _GRID
+    W = world()
+    if n_model < 1 or W % n_model:
+        raise ValueError(f'n_model {n_model} does not divide the world size {W}')
+    n_data, r = W // n_model, rank()
+    data = model = None
+    if n_model > 1:
+        for m in range(n_model):
+            g = dist.new_group([d * n_model + m for d in range(n_data)])
+            data = g if m == r % n_model else data
+        for d in range(n_data):
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            model = g if d == r // n_model else model
+    _GRID = Grid(n_data, n_model, r // n_model, r % n_model, data, model)
+    return _GRID
+
+
+def grid() -> Grid:
+    """This rank's place in the grid: `make_groups`', else every rank its own
+    data index on the default group, and a model group of one."""
+    return _GRID if _GRID is not None else Grid(world(), 1, rank(), 0, None, None)
+
+
+def data_world() -> int:
+    """The number of data indices (the 'data' axis of the JAX mesh)."""
+    return grid().n_data
+
+
+def data_index() -> int:
+    return grid().data_index
 
 
 def active() -> bool:
@@ -105,9 +165,10 @@ def rank() -> int:
 
 
 def process_local_batch_slice(global_batch_size: int) -> slice:
-    """Which rows of the global batch this process feeds."""
-    per_process = global_batch_size // world()
-    start = rank() * per_process
+    """Which rows of the global batch this process feeds: its data index's
+    share (the model ranks of a data index feed the same rows)."""
+    per_process = global_batch_size // data_world()
+    start = data_index() * per_process
     return slice(start, start + per_process)
 
 
@@ -157,33 +218,37 @@ def all_max(values: typing.Sequence[int]) -> typing.List[int]:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM)
-        return grad
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum over the process group: the gradient of the sum is
-    the sum over the ranks of their gradients. The batch-norm statistics'
-    reduction."""
-    return _AllReduceSum.apply(t)
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum over `group` (None: the default group): the
+    gradient of the sum is the sum over the ranks of their gradients. The
+    batch-norm statistics' reduction, over the data group."""
+    return _AllReduceSum.apply(t, group)
 
 
-def all_reduce_mean_(tensors: typing.Sequence[torch.Tensor]):
-    """In place: each tensor becomes its mean over the ranks, in one
-    collective over the flattened tensors."""
-    if not active() or not tensors:
+def all_reduce_mean_(tensors: typing.Sequence[torch.Tensor], group=None,
+                     size: typing.Optional[int] = None):
+    """In place: each tensor becomes its mean over the `size` ranks of
+    `group` (None: over the default group's), in one collective over the
+    flattened tensors."""
+    size = size if size is not None else world()
+    if size < 2 or not tensors:
         return tensors
     flat = torch._utils._flatten_dense_tensors(list(tensors))
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-    flat.div_(world())
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(size)
     for t, r in zip(tensors, torch._utils._unflatten_dense_tensors(flat, list(tensors))):
         t.copy_(r)
     return tensors

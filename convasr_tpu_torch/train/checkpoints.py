@@ -11,6 +11,13 @@ keys) is converted by `load_reference_checkpoint`; `load_any_checkpoint`
 tells it from the port's own by its key names. The port does not read an
 orbax directory itself: `scripts/orbax_to_npz.py` flattens one into such an
 `.npz`, its args beside the weights as a JSON string.
+
+Under the tensor-parallel layout (parallel/tensor_parallel.py) every rank
+calls the savers, which gather the sharded leaves, and rank 0 writes the
+whole tensors: the file is a one-process run's, as orbax writes global
+arrays. `restore_train_state_` loads a whole checkpoint into a sharded model
+and optimizer state, each rank taking its slices, so a checkpoint moves
+between the two layouts both ways.
 """
 import argparse
 import glob
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.convert import from_jax_npz
+from ..parallel import mesh, tensor_parallel
 
 CHECKPOINT_TEMPLATE = 'checkpoint_epoch{epoch:02d}_iter{iteration:07d}'
 
@@ -36,7 +44,9 @@ def checkpoint_path(experiment_dir: str, epoch: int, iteration: int,
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, args: typing.Optional[dict] = None):
-    torch.save(dict(model_state_dict=model.state_dict(), args=dict(args or {})), path)
+    state_dict = tensor_parallel.gather_state(model)
+    if mesh.rank() == 0 or not tensor_parallel.is_sharded(model):
+        torch.save(dict(model_state_dict=state_dict, args=dict(args or {})), path)
     return path
 
 
@@ -60,8 +70,15 @@ def save_train_checkpoint(path: str, model: torch.nn.Module, state, epoch: int =
                           generator_states: typing.Optional[list] = None) -> str:
     """state: train/loop.TrainState. Written to a temporary file first, so a
     checkpoint that exists is whole. generator_states: every rank's generator
-    state (bytes, in rank order) of a run over several processes."""
-    payload = dict(model_state_dict=model.state_dict(), opt_state=_to(state.opt_state, 'cpu'),
+    state (bytes, in rank order) of a run over several processes. A sharded
+    model's whole tensors are written by rank 0."""
+    sharded = tensor_parallel.is_sharded(model)
+    opt_state = tensor_parallel.gather_opt_state(state.opt_state, list(model.parameters())) \
+        if sharded else state.opt_state
+    model_state_dict = tensor_parallel.gather_state(model)
+    if sharded and mesh.rank() != 0:
+        return path
+    payload = dict(model_state_dict=model_state_dict, opt_state=_to(opt_state, 'cpu'),
                    step=int(state.step), epoch=int(epoch), sampler=dict(sampler_state or {}),
                    generator_state=generator.get_state() if generator is not None else None,
                    args=plain_args(dict(args or {})))
@@ -71,6 +88,22 @@ def save_train_checkpoint(path: str, model: torch.nn.Module, state, epoch: int =
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def restore_train_state_(model: torch.nn.Module, ckpt: dict, state=None):
+    """Loads load_train_checkpoint's payload into `model` (and its optimizer
+    state into `state`, a train/loop.TrainState, where both are given): each
+    sharded leaf of a tensor-parallel model takes this rank's slice."""
+    if tensor_parallel.is_sharded(model):
+        tensor_parallel.load_sharded_(model, ckpt['model_state_dict'])
+    else:
+        model.load_state_dict(ckpt['model_state_dict'])
+    if state is not None and ckpt.get('opt_state') is not None:
+        state.opt_state = tensor_parallel.shard_opt_state(ckpt['opt_state'],
+                                                          list(model.parameters())) \
+            if tensor_parallel.is_sharded(model) else ckpt['opt_state']
+        state.step = int(ckpt.get('step', state.step))
+    return model
 
 
 def load_train_checkpoint(path: str, device='cpu') -> dict:

@@ -17,6 +17,11 @@ mean over its B/W rows, and one all-reduce after the backward averages the
 gradients, the loss and the entropy over the ranks: the mean over the global
 batch of B rows, because every rank feeds the same count of rows. The clip
 and the optimizer then run on the same averaged gradient on every rank.
+Under the tensor-parallel layout (parallel/tensor_parallel.py) that mean is
+over the data group: a sharded leaf's gradient is its rank's slice, which
+the data group's ranks share; a replicated leaf's gradient is whole and the
+same on every rank of the model group. The norms of the clip, of NovoGrad
+and of the metrics are global over the model group (train/optim.py).
 """
 import contextlib
 import dataclasses
@@ -28,7 +33,7 @@ import torch
 from ..infra.utils import wide_float
 from ..models.jasper import BatchNorm, ConvBn
 from ..ops.ctc_loss import ctc_loss_auto
-from ..parallel import mesh
+from ..parallel import mesh, tensor_parallel
 from . import optim
 
 
@@ -158,13 +163,16 @@ def make_train_step(model: torch.nn.Module, optimizer, bpe_only: bool = False,
         with torch.no_grad():
             ent = entropy(lp0, olen0).mean()
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-            if mesh.active():
-                # one all-reduce: the mean over the ranks of the gradients,
-                # the loss and the entropy, so every rank takes the same step
-                # (and skips it together) and logs the global batch's loss
+            grid = mesh.grid()
+            if grid.n_data > 1:
+                # one all-reduce: the mean over the data indices of the
+                # gradients, the loss and the entropy, so every rank takes
+                # the same step (and skips it together) and logs the global
+                # batch's loss
                 loss, ent = loss.detach().reshape(1), ent.reshape(1)
-                mesh.all_reduce_mean_(grads + [loss, ent])
+                mesh.all_reduce_mean_(grads + [loss, ent], grid.data, grid.n_data)
                 loss, ent = loss[0], ent[0]
+            tensor_parallel.broadcast_replicated_(grads, params)
             finite = torch.isfinite(loss)
             if skip_nonfinite:
                 grads = [torch.where(finite, g, 0.0) for g in grads]
@@ -180,7 +188,8 @@ def make_train_step(model: torch.nn.Module, optimizer, bpe_only: bool = False,
             optim.apply_updates(params, updates)
             state.opt_state = opt_state
             state.step += 1
-            return dict(loss=loss.detach(), entropy=ent, grad_norm=optim.global_norm(grads),
+            return dict(loss=loss.detach(), entropy=ent,
+                        grad_norm=optim.global_norm(grads, like=params),
                         weight_norm=optim.global_norm(params),
                         finite=finite.to(torch.float32))
 

@@ -13,12 +13,21 @@ float32 rounding.
 
 NovoGrad keeps the reference's first step: ema := g^2 and momentum := the
 normalised gradient, not scaled by (1 - beta1).
+
+Under the tensor-parallel layout a sharded parameter's tensors are slices,
+and a sum of squares over one is a partial sum: every per-tensor and global
+norm (NovoGrad's EMA, LARC, the global-norm clip, the metrics) sums the
+sharded tensors' partial sums over the model group and counts each
+replicated one once (parallel/tensor_parallel.sum_sharded), where GSPMD
+makes the JAX package's global. The tensors of an update are told apart by
+the parameters they go with (`like`), which `update` receives.
 """
 import typing
 
 import torch
 
 from ..infra.utils import wide_float
+from ..parallel import tensor_parallel
 
 
 class GradientTransformation(typing.NamedTuple):
@@ -34,18 +43,20 @@ def _count(params):
     return torch.zeros((), dtype=torch.int32, device=_device(params))
 
 
-def _sq_norms(tensors) -> torch.Tensor:
+def _sq_norms(tensors, like=None) -> torch.Tensor:
     """(N,) float32 sums of squares of each tensor (float64 for float64
-    tensors)."""
+    tensors), whole over the model group; `like`: the parameters the tensors
+    go with (default: the tensors themselves)."""
     if not tensors:
         return torch.zeros((0,))
     norms = torch._foreach_norm([wide_float(t) for t in tensors])
-    return torch.stack(norms) ** 2
+    return tensor_parallel.sum_sharded(torch.stack(norms) ** 2,
+                                       like if like is not None else tensors)
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, like=None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(_sq_norms(tensors).sum())
+    return torch.sqrt(_sq_norms(tensors, like).sum())
 
 
 def tree_select(flag: torch.Tensor, new, old):
@@ -115,7 +126,8 @@ def scale_by_novograd(betas=(0.95, 0.98), eps: float = 1e-8,
 
     def init(params):
         return dict(step=_count(params),
-                    grads_ema=torch.zeros((len(params),), dtype=_sq_norms(params[:1]).dtype,
+                    grads_ema=torch.zeros((len(params),), dtype=torch.float64 if params and
+                                          params[0].dtype == torch.float64 else torch.float32,
                                           device=_device(params)),
                     momentum=[torch.zeros_like(p) for p in params])
 
@@ -123,7 +135,7 @@ def scale_by_novograd(betas=(0.95, 0.98), eps: float = 1e-8,
         if not updates:
             return updates, dict(state, step=state['step'] + 1)
         first = state['step'] == 0
-        g2 = _sq_norms(updates)
+        g2 = _sq_norms(updates, params)
         ema = torch.where(first, g2, state['grads_ema'] * b2 + g2 * (1.0 - b2))
         d = torch._foreach_div(updates, list(torch.sqrt(ema + eps).unbind(0)))
         if weight_decay > 0:
@@ -159,6 +171,9 @@ def larc(learning_rate_fn, mode: str = 'clip', eps: float = 1e-7,
         lr = _lr_value(learning_rate_fn, state['count'])
         v_norm = torch.stack(torch._foreach_norm(params))
         g_norm = torch.stack(torch._foreach_norm(updates))
+        if tensor_parallel.model_world() > 1:
+            v_norm = torch.sqrt(tensor_parallel.sum_sharded(v_norm ** 2, params))
+            g_norm = torch.sqrt(tensor_parallel.sum_sharded(g_norm ** 2, params))
         if mode == 'clip':
             s = torch.clamp(eta * v_norm / (lr * (g_norm + eps)), min_update, 1.0)
         else:
@@ -221,7 +236,7 @@ def clip_by_global_norm(max_norm: float):
     """u unchanged when the global norm is below max_norm, else
     (u / norm) * max_norm (optax's formula)."""
     def update(updates, state, params=None):
-        norm = global_norm(updates)
+        norm = global_norm(updates, params)
         keep = norm < max_norm
         return [torch.where(keep, u, (u / norm) * max_norm) for u in updates], state
     return GradientTransformation(lambda params: {}, update)
