@@ -1,0 +1,8 @@
+"""`dispatch_ms_per_step.train`'s reading in char-train, where it moves
+`train_card_ms_per_audio_s` (char-train's wall rate spreads too widely with
+the host's speed to carry a bound; PERF.md §2)."""
+from perfbench import harness
+
+
+def read(run):
+    return harness.Registry().metric('dispatch_ms_per_step.train').read(run)
