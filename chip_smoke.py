@@ -29,8 +29,9 @@
    16 segments and a checkpoint, which is loaded back; the launch counts are
    set to 0 just before and read just after: the forward kernel must have
    launched 9 times, the warp backward kernel 8 times and the block one
-   never; three more steps under torch.profiler give the step's kernel time
-   by kind and the card's idle share;
+   never, and the fused update's norm, update, stash and restore launches 8
+   times each; three more steps under torch.profiler give the step's kernel
+   time by kind and the card's idle share;
 6. kernels: the CTC loss kernels (forward, warp backward, block backward)
    against their plain versions on the card, on the inputs the train run gave
    them and at two seeded shapes (the forward's alpha itself, its ll and
@@ -41,7 +42,15 @@
    and 1023 (B32 T500), where the route's crossover lies; the block kernel's
    route (a lattice past the warp kernel's reach) through ctc_loss_auto,
    counted apart (the kernels line gives every kernel its launches on the
-   train path);
+   train path); then NovoGrad's fused update (ops/novograd_update.py) at the
+   train cells' two leaf sets (perfbench/configs jasper_big_char and
+   jasper_big_bpe): 4 steps from one start against the chain it replaces
+   (the first, above the clip's norm, below it, a non-finite loss), each leaf
+   of the parameters, the momentum and the EMA within 1e-5 of its largest
+   value, the state bit for bit after the non-finite step, the batch norms'
+   stash and restore bit for bit; the two kernels queued and by
+   torch.profiler beside the chain and the bound (6 float32 sets over 3.35
+   TB/s) in the kernels line;
 7. check: one float32 train step of JasperNetBig on the card against the
    same step on the CPU;
 8. transcribe --quantize int8 --align: the port's `cli/transcribe.main` on
@@ -699,12 +708,14 @@ def main():
 SPLITS = dict(asked=0, unmeasured=0)
 
 
-def kernel_split_ms(run, names, reps=10):
+def kernel_split_ms(run, names, reps=10, per_launch=False):
     """Card time a call of `run` spends in the kernels whose names contain each
     of `names`, by torch.profiler over `reps` calls after one warm-up call;
-    None where the profiler recorded no device time for one of them (CUPTI
-    does not trace on every machine, as profile_kinds allows too), counted
-    in SPLITS."""
+    per_launch: the mean of a launch the profiler recorded instead (it can
+    miss the first calls' kernels, which a sum over `reps` reads as less
+    time); None where the profiler recorded no device time for one of them
+    (CUPTI does not trace on every machine, as profile_kinds allows too),
+    counted in SPLITS."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
@@ -712,8 +723,11 @@ def kernel_split_ms(run, names, reps=10):
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    split = {name: sum(e.self_device_time_total for e in prof.key_averages()
-                       if name in e.key) / 1e3 / reps for name in names}
+    split = {}
+    for name in names:
+        events = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in events) if per_launch else reps
+        split[name] = sum(e.self_device_time_total for e in events) / 1e3 / n if n else 0.0
     measured = all(ms > 0 for ms in split.values())
     SPLITS['asked'] += 1
     SPLITS['unmeasured'] += not measured
@@ -771,6 +785,8 @@ def profile_train_step(device, model, batch, loop, optim):
         return ('ctc loss kernels' if 'ctc_alpha' in name or 'ctc_beta_grad' in name else
                 'batch norm' if any(k in name for k in ('batch_norm', 'batchnorm', 'bn_')) else
                 'optimizer (foreach)' if 'foreach' in name or 'multi_tensor' in name else
+                'optimizer (fused)' if any(k in name for k in ('norm_kernel', 'update_kernel',
+                                                               'stash_kernel')) else
                 'convolutions' if any(k in name for k in ('conv', 'gemm', 'xmma', 'cutlass',
                                                           'cudnn', 'implicit', 'sm90')) else
                 'other')
@@ -778,14 +794,199 @@ def profile_train_step(device, model, batch, loop, optim):
                   classify)
 
 
+FUSED_CONFIGS = ('jasper_big_char', 'jasper_big_bpe')  # perfbench/configs: the train cells
+FUSED_RTOL = 1e-5   # per leaf, of its largest value: the sums of squares go in another order
+
+
+def fused_leaf_sets(name):
+    """A configuration's parameter and batch-norm statistic shapes, as the
+    train cells build its model (on the meta device: no memory), and its
+    optimizer settings."""
+    from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
+    from convasr_tpu_torch.models.jasper import BatchNorm
+    from convasr_tpu_torch.models.zoo import create_model
+    config = json.loads((ROOT / 'perfbench' / 'configs' / f'{name}.json').read_text())
+    fe, arch = config['frontend'], dict(config['architecture'])
+    classes = tuple(h['classes'] for h in config['heads'])
+    with torch.device('meta'):
+        frontend = LogFilterBankFrontend(
+            out_channels=fe['num_input_features'], sample_rate=fe['sample_rate'],
+            window_size=fe['window_size'], window_stride=fe['window_stride'])
+        model = create_model(config['model'], num_input_features=fe['num_input_features'],
+                             num_classes=classes, frontend=frontend,
+                             decoder_type='bpe' if len(classes) > 1 else None,
+                             dropout=arch.pop('dropout'), **arch)
+    stats = [t.shape for m in model.modules() if isinstance(m, BatchNorm)
+             for t in (m.running_mean, m.running_var)]
+    return [p.shape for p in model.parameters()], stats, config['train']
+
+
+def fused_update_phase(device, launches=None):
+    """Phase 6's NovoGrad update (ops/novograd_update.py) at the train cells'
+    two leaf sets: the fused update and the chain it replaces
+    (train/loop.chain_update) from the same start for 4 steps (the first,
+    one above the clip's norm, one below it, one whose loss is not finite),
+    each leaf of the parameters, the momentum and the EMA within FUSED_RTOL
+    of the chain's after every step, and after the non-finite one the state
+    of each bit for bit as before it, grad_norm 0; the batch norms'
+    statistics stashed and restored bit for bit; then the kernels timed:
+    queued, each by torch.profiler, beside the chain's time and the bound
+    (6 float32 sets of the parameters over HBM_BYTES_PER_S). Returns the
+    kernels' records, `launches` (by record name) as their launches."""
+    from convasr_tpu_torch.ops import novograd_update
+    from convasr_tpu_torch.train import loop, optim
+    launches = launches or {}
+    measured = {}
+    for name in FUSED_CONFIGS:
+        shapes, stat_shapes, opt = fused_leaf_sets(name)
+        tx = loop.make_optimizer_with_accum(
+            optim.make_optimizer(opt['optimizer'], optim.noop_lr(opt['lr']),
+                                 weight_decay=opt['weight_decay'], betas=tuple(opt['betas']),
+                                 eps=opt['eps']),
+            max_grad_norm=opt['max_norm'])
+        assert tx.fused is not None and opt['max_norm'] > 0, name
+        gen = torch.Generator(device=device).manual_seed(7)
+        params = [0.05 * torch.randn(s, device=device, generator=gen) for s in shapes]
+        chain_params = [p.clone() for p in params]
+        state, chain_state = tx.init(params), tx.init(chain_params)
+        scratch = novograd_update.Scratch([p.numel() for p in params], device)
+        elements = sum(p.numel() for p in params)
+        # gradients of deviation sigma have a norm near sigma sqrt(elements)
+        sigma = opt['max_norm'] / elements ** 0.5
+        worst = dict(params=0.0, momentum=0.0, ema=0.0, grad_norm=0.0, weight_norm=0.0)
+
+        def rel(got, want):
+            return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(got, want))
+
+        def bits(params_, state_):
+            nv, schedule = tx.fused.parts(state_)
+            return [t.clone() for t in [*params_, *nv['momentum'], nv['grads_ema'], nv['step'],
+                                        schedule['count']]]
+
+        for k, (what, scale) in enumerate((('first', 0.5), ('clipped', 4.0),
+                                           ('unclipped', 0.25), ('nonfinite', 1.0))):
+            grads = [scale * sigma * torch.randn(s, device=device, generator=gen)
+                     for s in shapes]
+            if what == 'nonfinite':      # the gradients of a loss that is not finite
+                grads[0].view(-1)[0], grads[-1].view(-1)[-1] = float('nan'), float('inf')
+            finite = torch.tensor(what != 'nonfinite', device=device)
+            before, chain_before = bits(params, state), bits(chain_params, chain_state)
+            grad_norm, weight_norm = tx.fused.step(grads, state, params, finite, scratch)
+            chain_state, chain_grad_norm, chain_weight_norm = loop.chain_update(
+                tx, grads, chain_state, chain_params, finite)
+            torch.cuda.synchronize()
+            nv, chain_nv = tx.fused.parts(state)[0], tx.fused.parts(chain_state)[0]
+            if what == 'nonfinite':
+                assert float(grad_norm) == float(chain_grad_norm) == 0.0, (name, what)
+                assert all(torch.equal(a, b) for a, b in zip(bits(params, state), before)), \
+                    f'{name}: the fused update changed the state on a non-finite step'
+                assert all(torch.equal(a, b) for a, b in zip(bits(chain_params, chain_state),
+                                                             chain_before)), name
+            else:
+                assert float(scratch.clip[1]) == float(what == 'clipped'), (name, what)
+            errs = dict(params=rel(params, chain_params),
+                        momentum=rel(nv['momentum'], chain_nv['momentum']),
+                        ema=rel([nv['grads_ema']], [chain_nv['grads_ema']]),
+                        grad_norm=rel([grad_norm], [chain_grad_norm]),
+                        weight_norm=rel([weight_norm], [chain_weight_norm]))
+            assert int(nv['step']) == int(chain_nv['step']) == min(k + 1, 3), (name, what)
+            assert all(e <= FUSED_RTOL for e in errs.values()), (name, what, errs)
+            worst = {key: max(worst[key], errs[key]) for key in worst}
+        del chain_params, chain_state, chain_nv
+
+        # the batch norms' statistics: stashed, changed as a forward does, put
+        # back bit for bit where the flag is false and left where it is true
+        stats = [torch.rand(s, device=device, generator=gen) for s in stat_shapes]
+        kept = [t.clone() for t in stats]
+        flat = novograd_update.stash(stats)
+        torch._foreach_mul_(stats, 0.9)
+        moved = [t.clone() for t in stats]
+        novograd_update.restore(stats, flat, torch.tensor(True, device=device))
+        assert all(torch.equal(a, b) for a, b in zip(stats, moved)), name
+        novograd_update.restore(stats, flat, torch.tensor(False, device=device))
+        assert all(torch.equal(a, b) for a, b in zip(stats, kept)), name
+
+        # the times: the fused update queued and by kernel, the chain's wall and
+        # kernels, from the state the steps left
+        finite = torch.tensor(True, device=device)
+        grads = [sigma * torch.randn(s, device=device, generator=gen) for s in shapes]
+
+        def fused():
+            tx.fused.step(grads, state, params, finite, scratch)
+
+        def bn():
+            novograd_update.stash(stats, flat)
+            novograd_update.restore(stats, flat, finite)
+
+        tic = time.perf_counter()
+        for _ in range(10):
+            fused()
+        host_ms = (time.perf_counter() - tic) * 1e2
+        torch.cuda.synchronize()
+        chain = dict(state=state)
+
+        def plain():
+            chain['state'] = loop.chain_update(tx, grads, chain['state'], params, finite)[0]
+
+        # one launch of each kernel a call
+        split = kernel_split_ms(fused, ('norm_kernel', 'update_kernel'), per_launch=True) or {}
+        stash_split = kernel_split_ms(bn, ('stash_kernel',), per_launch=True)
+        sets = dict(norm=1, update=5)      # the gradient read; g, p, m read and p, m written
+        measured[name] = dict(
+            leaves=len(params), elements=elements, stats=len(stats), worst=worst,
+            queued=queued_ms(fused, 20), host=host_ms,
+            norm=split.get('norm_kernel'), update=split.get('update_kernel'),
+            bound={k: v * 4 * elements / HBM_BYTES_PER_S * 1e3 for k, v in sets.items()},
+            stash_queued=queued_ms(bn, 20),
+            stash=2 * stash_split['stash_kernel'] if stash_split else None,  # 2 launches a call
+            # the stash reads and writes each statistic; the restore of a finite
+            # step returns at once
+            stash_bound=2 * 4 * sum(t.numel() for t in stats) / HBM_BYTES_PER_S * 1e3,
+            plain=cuda_ms(plain, 3),
+            plain_kernels=(kernel_split_ms(plain, ('',), reps=3) or {}).get(''))
+        m = measured[name]
+        log(f'novograd_update [{name}] {m["leaves"]} leaves, {elements / 1e6:.1f} M elements, '
+            f'{m["stats"]} statistics: 4 steps (first, clipped, unclipped, non-finite) against '
+            f'the chain, worst of a leaf {worst} (<= {FUSED_RTOL}); the non-finite step and '
+            f'the stash and restore bit for bit; queued {m["queued"]:.3f} ms (norm '
+            f'{m["norm"]} + update {m["update"]} by torch.profiler) against a bound of '
+            f'{sum(m["bound"].values()):.3f} ms; host {host_ms:.3f} ms a call; the chain '
+            f'{m["plain"]:.2f} ms wall, {m["plain_kernels"]} ms of kernels; stash and '
+            f'restore queued {m["stash_queued"]} ms, {m["stash"]} ms by torch.profiler')
+        del params, grads, state, chain, stats, flat
+        torch.cuda.empty_cache()
+
+    # the records at the char cell's leaves; every leaf set's numbers beside them
+    char = measured[FUSED_CONFIGS[0]]
+    source = 'convasr_tpu_torch/csrc/novograd_update.cu'
+    records = []
+    for record, kernel, ms, plain, bound, err in (
+            ('novograd_norm', 'norm', char['norm'], char['plain'], char['bound']['norm'],
+             char['worst']['ema']),
+            ('novograd_update', 'update', char['update'], char['plain'],
+             char['bound']['update'], char['worst']['params']),
+            ('novograd_stash', 'stash', char['stash'], None, char['stash_bound'], 0.0)):
+        records.append(dict(
+            name=record, route='cuda', source=source, replaces=None,
+            launches=launches.get(record, 0), max_abs_err=None, max_rel_err=err, ms=ms,
+            plain_ms=plain,
+            bound_ms=bound, bound_by='bytes', library_ms=None,
+            queued_ms=char['stash_queued'] if kernel == 'stash' else char['queued'],
+            by_config={n: dict((k, v) for k, v in m.items() if k != 'worst')
+                       for n, m in measured.items()}))
+    return records
+
+
 def train_phases(device):
-    """Phases 5-7; returns the JSON records of the two CTC loss kernels and
-    phase 6's cases (label, [log_probs, targets, xlen, ylen, blank, g])."""
+    """Phases 5-7; returns the JSON records of the CTC loss kernels and the
+    fused update's, and phase 6's cases (label, [log_probs, targets, xlen,
+    ylen, blank, g])."""
     import torch.nn.functional as F
     from convasr_tpu_torch.cli import train as train_cli
     from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
     from convasr_tpu_torch.models.zoo import create_model
-    from convasr_tpu_torch.ops import align, ctc_loss
+    from convasr_tpu_torch.ops import align, ctc_loss, novograd_update
     from convasr_tpu_torch.train import loop, optim
     from convasr_tpu_torch.train.checkpoints import load_train_checkpoint
 
@@ -828,6 +1029,8 @@ def train_phases(device):
          '--val-config', str(ROOT / 'configs' / 'ru_val_config.json')])
     assert args.device == 'cuda' and args.model == 'JasperNetBig' and args.bf16
     ctc_loss.ALPHA_LAUNCHES = ctc_loss.BETA_GRAD_LAUNCHES = ctc_loss.BETA_GRAD_WARP_LAUNCHES = 0
+    novograd_update.NORM_LAUNCHES = novograd_update.UPDATE_LAUNCHES = 0
+    novograd_update.STASH_LAUNCHES = novograd_update.RESTORE_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     tic = time.perf_counter()
@@ -836,7 +1039,11 @@ def train_phases(device):
     wall = time.perf_counter() - tic
     launches = dict(ctc_loss_alpha=ctc_loss.ALPHA_LAUNCHES,
                     ctc_loss_beta_grad_warp=ctc_loss.BETA_GRAD_WARP_LAUNCHES,
-                    ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES)
+                    ctc_loss_beta_grad=ctc_loss.BETA_GRAD_LAUNCHES,
+                    novograd_norm=novograd_update.NORM_LAUNCHES,
+                    novograd_update=novograd_update.UPDATE_LAUNCHES,
+                    novograd_stash=novograd_update.STASH_LAUNCHES,
+                    novograd_restore=novograd_update.RESTORE_LAUNCHES)
     train_cli.make_train_step, ctc_loss.beta_grad_kernel = make_step, beta_grad
     peak = torch.cuda.max_memory_allocated()
 
@@ -846,8 +1053,13 @@ def train_phases(device):
     assert len(steps) == 8, f'{len(steps)} train steps ran'
     val_batches = 1
     # the backward on the warp kernel (L 128 is inside its rule), the block one never
+    # the CLI's NovoGrad behind the clip: every step on the fused update, the
+    # batch norms' statistics stashed and the restore launched (a no-op where
+    # the loss is finite)
     assert launches == dict(ctc_loss_alpha=8 + val_batches, ctc_loss_beta_grad_warp=8,
-                            ctc_loss_beta_grad=0), f'CTC loss kernel launches {launches}'
+                            ctc_loss_beta_grad=0, novograd_norm=8, novograd_update=8,
+                            novograd_stash=8, novograd_restore=8), \
+        f'CTC loss and update kernel launches {launches}'
     logged = [json.loads(line) for line in open(exp_dir / 'jasper_big' / 'log.json')]
     assert [m['iteration'] for m in logged] == list(range(1, 9)), logged
     assert all(np.isfinite(m['loss']) and m['finite'] == 1.0 for m in logged), logged
@@ -1048,6 +1260,11 @@ def train_phases(device):
                             launches=launches[name], max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                             library_ms=lib_ms))
+
+    # 6. NovoGrad's fused update against the chain at the train cells' leaf sets
+    kernels += fused_update_phase(device, dict(
+        novograd_norm=launches['novograd_norm'], novograd_update=launches['novograd_update'],
+        novograd_stash=launches['novograd_stash'] + launches['novograd_restore']))
 
     # 7. one float32 train step on the card against the same step on the CPU
     prev_tf32 = torch.backends.cudnn.allow_tf32

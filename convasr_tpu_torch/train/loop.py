@@ -7,10 +7,13 @@ tensors, through ops/ctc_loss.ctc_loss_auto), optional blank penalty,
 gradients, global-norm clip, optimizer, and a skip of any step whose loss is
 not finite. The skip keeps parameters, optimizer state and batch-norm
 statistics as they were and zeroes the gradients, choosing on the device
-(`torch.where` on a 0-dim flag) so that the step never waits for the host.
+(`torch.where` on a 0-dim flag, or the fused kernels' reading of it) so that
+the step never waits for the host.
 
 Where JAX returns a new state, the port updates the model's parameters and
-buffers in place and returns the new optimizer state in `TrainState`.
+buffers in place and returns the new optimizer state in `TrainState`; on the
+fused route (make_train_step) the optimizer state's tensors are updated in
+place too, and the state keeps its tree.
 
 Over a process group of world > 1 (parallel/mesh.py), each rank's loss is the
 mean over its B/W rows, and one all-reduce after the backward averages the
@@ -33,6 +36,7 @@ import torch
 from ..infra import profiler
 from ..infra.utils import wide_float
 from ..models.jasper import BatchNorm, ConvBn
+from ..ops import novograd_update
 from ..ops.ctc_loss import ctc_loss_auto
 from ..parallel import mesh, tensor_parallel
 from . import optim
@@ -111,15 +115,21 @@ def freeze_mask(model: torch.nn.Module, freeze_backbone: int = 0,
 def make_optimizer_with_accum(base_optimizer, max_grad_norm: float = 0.0,
                               accumulate_steps: int = 1, trainable_mask=None):
     """Frozen parameters get zero updates, then the global-norm clip, then
-    accumulation over `accumulate_steps` (the mean of the gradients)."""
+    accumulation over `accumulate_steps` (the mean of the gradients). A base
+    with a fused update (make_optimizer's NovoGrad) keeps it, with the clip's
+    norm, where there is no mask and no accumulation."""
     tx = base_optimizer
     if trainable_mask is not None:
         tx = optim.chain(optim.masked(tx, trainable_mask),
                          optim.masked(optim.set_to_zero(), [not t for t in trainable_mask]))
-    if max_grad_norm and max_grad_norm > 0:
+    clip = bool(max_grad_norm and max_grad_norm > 0)
+    if clip:
         tx = optim.chain(optim.clip_by_global_norm(max_grad_norm), tx)
     if accumulate_steps > 1:
         tx = optim.multi_steps(tx, accumulate_steps)
+    if base_optimizer.fused is not None and trainable_mask is None and accumulate_steps <= 1:
+        tx = tx._replace(fused=dataclasses.replace(
+            base_optimizer.fused, max_norm=float(max_grad_norm) if clip else 0.0))
     return tx
 
 
@@ -129,6 +139,26 @@ def init_train_state(model: torch.nn.Module, optimizer) -> TrainState:
 
 def _batch_norms(model):
     return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+def chain_update(optimizer, grads, opt_state, params, finite=None):
+    """The clip, the optimizer and the apply as the optimizer's chain of
+    per-leaf operations, with the non-finite skip where `finite` (a 0-dim
+    bool) is given: the gradients zeroed, the updates dropped and the state
+    kept where it is false. Returns (the new optimizer state, grad_norm of
+    the gradients as the optimizer got them, weight_norm of the updated
+    parameters). The plain version of the fused update
+    (ops/novograd_update.py)."""
+    if finite is not None:
+        grads = [torch.where(finite, g, 0.0) for g in grads]
+    updates, new_state = optimizer.update(grads, opt_state, params)
+    if finite is not None:
+        # updates made from zeroed gradients are finite, so a product with
+        # the 0/1 flag keeps or drops them exactly
+        updates = torch._foreach_mul(updates, finite.to(torch.float32))
+        new_state = optim.tree_select(finite, new_state, opt_state)
+    optim.apply_updates(params, updates)
+    return new_state, optim.global_norm(grads, like=params), optim.global_norm(params)
 
 
 def make_train_step(model: torch.nn.Module, optimizer, bpe_only: bool = False,
@@ -145,21 +175,47 @@ def make_train_step(model: torch.nn.Module, optimizer, bpe_only: bool = False,
     loss: a remedy for peaky CTC, whose long blank runs inside words decode
     as word boundaries.
 
+    The update takes the optimizer's fused route where the composition has
+    one (`optimizer.fused`: make_optimizer's NovoGrad with or without the
+    clip, no mask, no accumulation), the model group is one rank and the
+    parameters are on a CUDA device: two launches over every leaf, the state
+    updated in place, and the batch norms' statistics stashed in one launch
+    and put back in one. There, tensors its kernels cannot take raise
+    ValueError (ops/novograd_update.table). Elsewhere, the CPU included, it
+    runs `chain_update` and keeps clones of the statistics.
+
     Under the span recorder (infra/profiler.py) a call records `train.step`
     and its children `train.forward` (the forward, the losses and the
     penalty), `train.backward` and `train.update` (the all-reduce, the clip,
     the optimizer, the non-finite skip and the norms), each with id = the
-    step the call starts from."""
+    step the call starts from, and counts `train.update.fused` a step on the
+    fused route."""
     params = list(model.parameters())
     norms = _batch_norms(model)
+    fused = optimizer.fused
+    # the fused route's kernel scratch and the statistics' stash, made at its
+    # first step on the parameters' device
+    buffers = dict(scratch=None, stash=None)
+
+    def scratch():
+        device = params[0].device
+        if buffers['scratch'] is None or buffers['scratch'].device != device:
+            buffers['scratch'] = novograd_update.Scratch([p.numel() for p in params], device)
+        return buffers['scratch']
 
     def train_step(state: TrainState, batch, generator=None):
         step = state.step
+        use_fused = fused is not None and bool(params) and params[0].is_cuda \
+            and tensor_parallel.model_world() == 1
+        stat_tensors = [t for m in norms for t in (m.running_mean, m.running_var)]
         with profiler.span('train.step', step):
             with profiler.span('train.forward', step):
                 model.train()
-                stats = [(m.running_mean.clone(), m.running_var.clone()) for m in norms] \
-                    if skip_nonfinite else []
+                stats = []
+                if use_fused and skip_nonfinite and stat_tensors:
+                    buffers['stash'] = novograd_update.stash(stat_tensors, buffers['stash'])
+                elif skip_nonfinite:
+                    stats = [t.clone() for t in stat_tensors]
                 outputs = model(undo_int16_transport(batch['x']), xlen=batch['xlen'],
                                 generator=generator)
                 loss = compute_losses(outputs, batch['y'], batch['ylen'], bpe_only=bpe_only).mean()
@@ -185,24 +241,23 @@ def make_train_step(model: torch.nn.Module, optimizer, bpe_only: bool = False,
                     loss, ent = loss[0], ent[0]
                 tensor_parallel.broadcast_replicated_(grads, params)
                 finite = torch.isfinite(loss)
-                if skip_nonfinite:
-                    grads = [torch.where(finite, g, 0.0) for g in grads]
-                updates, opt_state = optimizer.update(grads, state.opt_state, params)
-                if skip_nonfinite:
-                    # updates made from zeroed gradients are finite, so a product
-                    # with the 0/1 flag keeps or drops them exactly
-                    updates = torch._foreach_mul(updates, finite.to(torch.float32))
-                    opt_state = optim.tree_select(finite, opt_state, state.opt_state)
-                    for m, (mean, var) in zip(norms, stats):
-                        m.running_mean.copy_(torch.where(finite, m.running_mean, mean))
-                        m.running_var.copy_(torch.where(finite, m.running_var, var))
-                optim.apply_updates(params, updates)
-                state.opt_state = opt_state
+                if use_fused:
+                    grad_norm, weight_norm = fused.step(
+                        grads, state.opt_state, params,
+                        finite if skip_nonfinite else torch.ones_like(finite), scratch())
+                    if skip_nonfinite and stat_tensors:
+                        novograd_update.restore(stat_tensors, buffers['stash'], finite)
+                    profiler.count('train.update.fused')
+                else:
+                    state.opt_state, grad_norm, weight_norm = chain_update(
+                        optimizer, grads, state.opt_state, params,
+                        finite if skip_nonfinite else None)
+                    if stats:
+                        for t, saved in zip(stat_tensors, stats):
+                            t.copy_(torch.where(finite, t, saved))
                 state.step += 1
-                return dict(loss=loss.detach(), entropy=ent,
-                            grad_norm=optim.global_norm(grads, like=params),
-                            weight_norm=optim.global_norm(params),
-                            finite=finite.to(torch.float32))
+                return dict(loss=loss.detach(), entropy=ent, grad_norm=grad_norm,
+                            weight_norm=weight_norm, finite=finite.to(torch.float32))
 
     return train_step
 

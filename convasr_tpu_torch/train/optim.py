@@ -14,6 +14,12 @@ float32 rounding.
 NovoGrad keeps the reference's first step: ema := g^2 and momentum := the
 normalised gradient, not scaled by (1 - beta1).
 
+`make_optimizer`'s NovoGrad, with or without the global-norm clip in front
+(`train/loop.make_optimizer_with_accum` with no mask and no accumulation),
+carries `fused` (FusedNovoGrad): the same update as two CUDA kernels over
+every leaf (ops/novograd_update.py), which the train step takes for CUDA
+parameters; this chain is their plain version.
+
 Under the tensor-parallel layout a sharded parameter's tensors are slices,
 and a sum of squares over one is a partial sum: every per-tensor and global
 norm (NovoGrad's EMA, LARC, the global-norm clip, the metrics) sums the
@@ -22,17 +28,22 @@ replicated one once (parallel/tensor_parallel.sum_sharded), where GSPMD
 makes the JAX package's global. The tensors of an update are told apart by
 the parameters they go with (`like`), which `update` receives.
 """
+import dataclasses
 import typing
 
 import torch
 
 from ..infra.utils import wide_float
+from ..ops import novograd_update
 from ..parallel import tensor_parallel
 
 
 class GradientTransformation(typing.NamedTuple):
     init: typing.Callable
     update: typing.Callable
+    # the same update over every leaf in place (FusedNovoGrad), on the
+    # compositions that have one; None elsewhere
+    fused: typing.Optional['FusedNovoGrad'] = None
 
 
 def _device(params):
@@ -391,5 +402,54 @@ def make_optimizer(name: str, learning_rate, momentum: float = 0.9,
         return adamw(lr, b1=betas[0], b2=betas[1], eps=eps, weight_decay=weight_decay)
     if name in ('novograd', 'fusednovograd'):
         return chain(scale_by_novograd(betas=betas, eps=eps, weight_decay=weight_decay),
-                     scale_by_schedule(lr))
+                     scale_by_schedule(lr))._replace(
+            fused=FusedNovoGrad(lr, tuple(betas), eps, weight_decay))
     raise ValueError(f'unknown optimizer {name}')
+
+
+def holding(state, key):
+    """The dict of the state tree that holds `key`, depth first; None where
+    none does."""
+    if isinstance(state, dict):
+        if key in state:
+            return state
+        state = list(state.values())
+    if isinstance(state, (list, tuple)):
+        for s in state:
+            found = holding(s, key)
+            if found is not None:
+                return found
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedNovoGrad:
+    """make_optimizer's NovoGrad and its schedule, behind the global-norm clip
+    where max_norm > 0, with the train step's non-finite skip and the apply,
+    as one call over every leaf that updates the parameters and the state
+    in place (ops/novograd_update.step); the state is the chain's own."""
+    learning_rate: typing.Callable
+    betas: tuple
+    eps: float
+    weight_decay: float
+    max_norm: float = 0.0
+
+    @staticmethod
+    def parts(state):
+        """(NovoGrad's state, the schedule's) in the chain's state, found by
+        their keys."""
+        novograd_state, schedule_state = holding(state, 'grads_ema'), holding(state, 'count')
+        if novograd_state is None or schedule_state is None:
+            raise ValueError('the optimizer state holds no NovoGrad and schedule state')
+        return novograd_state, schedule_state
+
+    def step(self, grads, state, params, finite, scratch):
+        """The update, in place (`finite`: the 0-dim bool flag of the
+        non-finite skip; `scratch`: ops/novograd_update.Scratch for the
+        parameters); returns (grad_norm, weight_norm). ValueError where the
+        kernels cannot take the tensors."""
+        nv, schedule = self.parts(state)
+        return novograd_update.step(
+            scratch, grads, params, nv['momentum'], nv['grads_ema'], nv['step'],
+            schedule['count'], _lr_value(self.learning_rate, schedule['count']), finite,
+            self.betas, self.eps, self.weight_decay, self.max_norm)

@@ -1326,3 +1326,245 @@ def test_a_traced_train_step_shares_the_profilers_clock(card):
     device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
     assert device and not [e.name() for e in device if e.name().startswith('train.')]
     assert min(e.start_ns() for e in device) >= spans['train.step'].start_ns - 1_000_000
+
+
+# --- NovoGrad's fused update (ops/novograd_update.py) against the chain ---
+
+# JasperNet's kinds of leaves at small widths: conv weights (Cout, Cin, K),
+# batch-norm scales and shifts, a one-tap head and its bias; two leaves of
+# more than a block's CHUNK elements with ragged ends, one of 105 elements
+FUSED_LEAVES = [(256, 64, 11), (256,), (256,), (256, 256, 13), (256,), (256,), (3, 5, 7),
+                (38, 256, 1), (38,)]
+# the kernels sum squares in another order than torch._foreach_norm, so the
+# denominators and the clip's norm differ from the chain's by float32
+# rounding of those sums; each element's own arithmetic rounds as the
+# chain's does. Per leaf, the norm of the difference over the chain's norm:
+FUSED_RTOL = 1e-5
+
+
+def fused_leaves(card, seed):
+    """FUSED_LEAVES' parameters on the card, the head's weight a view 4
+    bytes past its buffer's start (the kernels' element-by-element path)."""
+    gen = torch.Generator().manual_seed(seed)
+    params = []
+    for i, shape in enumerate(FUSED_LEAVES):
+        x = 0.1 * torch.randn(shape, generator=gen)
+        if i == 7:
+            params.append(torch.empty(x.numel() + 1, device=card)[1:].view(shape).copy_(x))
+        else:
+            params.append(x.to(card))
+    return params
+
+
+def assert_leaves_close(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+        assert err <= FUSED_RTOL, f'{what}[{i}] {tuple(b.shape)}: {err:.3g}'
+
+
+def _flat_state(state):
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _flat_state(state[k])]
+    if isinstance(state, (list, tuple)):
+        return [t for s in state for t in _flat_state(s)]
+    return [state] if torch.is_tensor(state) else []
+
+
+@pytest.mark.parametrize('lr', ['float', 'device'])
+@pytest.mark.parametrize('case', ['clipped_then_not', 'nonfinite', 'no_clip'])
+def test_fused_novograd_equals_the_chain(card, case, lr):
+    """Four steps of the fused update against the chain's from the same start
+    on a JasperNet-shaped leaf list: the first step, steps above and below
+    the clip's norm in turns, a step whose loss is not finite (nothing
+    changes, grad_norm reads 0), no clip; the rate a Python float or a 0-dim
+    tensor on the card (a schedule)."""
+    from convasr_tpu_torch.ops import novograd_update
+    from convasr_tpu_torch.train import loop, optim
+    schedule = optim.noop_lr(1e-2) if lr == 'float' else optim.multistep_lr(1e-2, 0.5, [2])
+    elements = sum(int(np.prod(s)) for s in FUSED_LEAVES)
+    # gradients of unit deviation have a norm near sqrt(elements): scaled by
+    # 4 they pass the clip's norm, by 0.25 they stay below it
+    max_norm = 0.0 if case == 'no_clip' else float(np.sqrt(elements))
+    tx = loop.make_optimizer_with_accum(
+        optim.make_optimizer('NovoGrad', schedule, weight_decay=1e-3, betas=(0.95, 0.5)),
+        max_grad_norm=max_norm)
+    params = fused_leaves(card, 0)
+    chain_params = [p.clone() for p in params]
+    state, chain_state = tx.init(params), tx.init(chain_params)
+    assert tx.fused is not None
+    scratch = novograd_update.Scratch([p.numel() for p in params], card)
+    gen = torch.Generator().manual_seed(1)
+    for k, scale in enumerate([4.0, 0.25, 4.0, 0.25]):
+        grads = [(scale * torch.randn(p.shape, generator=gen)).to(card) for p in params]
+        finite = torch.tensor(not (case == 'nonfinite' and k == 2), device=card)
+        before = [t.clone() for t in params + _flat_state(state)]
+        launches = (novograd_update.NORM_LAUNCHES, novograd_update.UPDATE_LAUNCHES)
+        grad_norm, weight_norm = tx.fused.step(grads, state, params, finite, scratch)
+        chain_state, chain_grad_norm, chain_weight_norm = loop.chain_update(
+            tx, grads, chain_state, chain_params, finite)
+        torch.cuda.synchronize()
+        assert (novograd_update.NORM_LAUNCHES, novograd_update.UPDATE_LAUNCHES) == \
+            (launches[0] + 1, launches[1] + 1)
+        if not bool(finite):
+            assert float(grad_norm) == float(chain_grad_norm) == 0.0
+            after = params + _flat_state(state)
+            assert all(torch.equal(a, b) for a, b in zip(after, before))
+        else:
+            assert float(scratch.clip[1]) == float(case != 'no_clip' and scale > 1)
+        nv, schedule_state = tx.fused.parts(state)
+        chain_nv, chain_schedule = tx.fused.parts(chain_state)
+        assert int(nv['step']) == int(chain_nv['step']) and \
+            int(schedule_state['count']) == int(chain_schedule['count'])
+        assert_leaves_close(params, chain_params, f'step {k} params')
+        assert_leaves_close(nv['momentum'], chain_nv['momentum'], f'step {k} momentum')
+        assert_leaves_close([nv['grads_ema']], [chain_nv['grads_ema']], f'step {k} ema')
+        np.testing.assert_allclose(float(grad_norm), float(chain_grad_norm), rtol=FUSED_RTOL)
+        np.testing.assert_allclose(float(weight_norm), float(chain_weight_norm), rtol=FUSED_RTOL)
+    assert int(tx.fused.parts(state)[0]['step']) == (3 if case == 'nonfinite' else 4)
+
+
+def test_fused_novograd_repeats_bit_for_bit(card):
+    """The sums reduce in a fixed order: the same step twice gives the same
+    bits."""
+    from convasr_tpu_torch.ops import novograd_update
+    from convasr_tpu_torch.train import loop, optim
+    tx = loop.make_optimizer_with_accum(optim.make_optimizer('NovoGrad', optim.noop_lr(1e-2)),
+                                        max_grad_norm=1.0)
+    runs = []
+    for _ in range(2):
+        params = fused_leaves(card, 3)
+        state = tx.init(params)
+        scratch = novograd_update.Scratch([p.numel() for p in params], card)
+        gen = torch.Generator().manual_seed(4)
+        for _ in range(2):
+            grads = [torch.randn(p.shape, generator=gen).to(card) for p in params]
+            norms = tx.fused.step(grads, state, params, torch.tensor(True, device=card), scratch)
+        runs.append([t.cpu() for t in params + _flat_state(state) + list(norms)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def small_jasper(card, name='JasperNetSmall'):
+    from convasr_tpu_torch.frontend.logmel import LogFilterBankFrontend
+    from convasr_tpu_torch.models.zoo import create_model
+    torch.manual_seed(0)
+    return create_model(name, 64, (38,), dropout=0.0, base_width=8,
+                        frontend=LogFilterBankFrontend(64, 8000, 0.02, 0.01, dither=0.0)).to(card)
+
+
+def small_batch(card, infeasible=False):
+    rng = np.random.RandomState(0)
+    batch = dict(x=torch.from_numpy((0.1 * rng.randn(4, 16000)).astype(np.float32)).to(card),
+                 xlen=torch.ones(4, device=card),
+                 y=torch.from_numpy(rng.randint(0, 37, (4, 1, 20))).to(card),
+                 ylen=torch.full((4, 1), 20, device=card))
+    if infeasible:   # 20 labels in a few frames: an infinite loss
+        batch['xlen'][1] = 0.01
+    return batch
+
+
+def test_fused_train_step_skips_a_nonfinite_loss(card):
+    """The train step on the fused route: a finite step launches each kernel
+    once; a step whose loss is not finite leaves the parameters, the
+    optimizer state and the batch norms' running statistics bit for bit as
+    they were, and reads grad_norm 0."""
+    from convasr_tpu_torch.infra import profiler
+    from convasr_tpu_torch.ops import novograd_update
+    from convasr_tpu_torch.train import loop, optim
+    model = small_jasper(card)
+    tx = loop.make_optimizer_with_accum(optim.make_optimizer('NovoGrad', optim.noop_lr(1e-3)),
+                                        max_grad_norm=1.0)
+    state, step = loop.init_train_state(model, tx), loop.make_train_step(model, tx)
+    counts = lambda: (novograd_update.NORM_LAUNCHES, novograd_update.UPDATE_LAUNCHES,  # noqa: E731
+                      novograd_update.STASH_LAUNCHES, novograd_update.RESTORE_LAUNCHES)
+    before = counts()
+    previous = profiler.enable(True)
+    profiler.reset()
+    try:
+        m = step(state, small_batch(card))
+        fused_counts = [c for c in profiler.snapshot()['counts'] if c.name == 'train.update.fused']
+    finally:
+        profiler.enable(previous)
+        profiler.reset()
+    assert float(m['finite']) == 1.0 and float(m['grad_norm']) > 0
+    assert counts() == tuple(c + 1 for c in before) and len(fused_counts) == 1
+    opt_state = state.opt_state
+    kept = {k: v.clone() for k, v in model.state_dict().items()}
+    kept_opt = [t.clone() for t in _flat_state(opt_state)]
+    m = step(state, small_batch(card, infeasible=True))
+    torch.cuda.synchronize()
+    assert float(m['finite']) == 0.0 and float(m['grad_norm']) == 0.0
+    assert state.opt_state is opt_state and state.step == 2
+    for name, value in model.state_dict().items():
+        if not name.endswith('num_batches_tracked'):
+            assert torch.equal(value, kept[name]), name
+    assert all(torch.equal(a, b) for a, b in zip(_flat_state(opt_state), kept_opt))
+
+
+@pytest.mark.parametrize('case', ['float64', 'non_contiguous', 'too_many_leaves', 'train_step'])
+def test_fused_route_refuses_what_its_kernels_cannot_take(card, case):
+    """On the fused route (the composition carries it, the parameters are on
+    the card) tensors the kernels cannot take raise ValueError, from the
+    update and from the train step: the chain never runs in their place."""
+    from convasr_tpu_torch.ops import novograd_update
+    from convasr_tpu_torch.train import loop, optim
+    tx = loop.make_optimizer_with_accum(optim.make_optimizer('NovoGrad', optim.noop_lr(1e-3)),
+                                        max_grad_norm=1.0)
+    if case == 'train_step':
+        model = small_jasper(card)
+        weight = next(p for p in model.parameters() if p.dim() == 3 and p.shape[2] > 1)
+        weight.data = weight.data.transpose(0, 2).contiguous().transpose(0, 2)
+        state, step = loop.init_train_state(model, tx), loop.make_train_step(model, tx)
+        launches = novograd_update.UPDATE_LAUNCHES
+        with pytest.raises(ValueError, match='non-contiguous'):
+            step(state, small_batch(card))
+        assert novograd_update.UPDATE_LAUNCHES == launches
+        return
+    n = novograd_update.MAX_LEAVES + 1 if case == 'too_many_leaves' else 3
+    params = [torch.ones(2, 6, device=card, dtype=torch.float64 if case == 'float64'
+                         else torch.float32) for _ in range(n)]
+    if case == 'non_contiguous':
+        params[1] = torch.ones(6, 2, device=card).t()
+    state = tx.init(params)
+    scratch = novograd_update.Scratch([p.numel() for p in params], card)
+    match = dict(float64='torch.float64', non_contiguous='non-contiguous',
+                 too_many_leaves='more than')[case]
+    with pytest.raises(ValueError, match=match):
+        tx.fused.step([torch.ones_like(p) for p in params], state, params,
+                      torch.tensor(True, device=card), scratch)
+
+
+def test_fused_update_launches_do_not_grow_with_the_leaves(card):
+    """By torch.profiler: the launches (kernels, copies, fills) inside one
+    `train.update` on the fused route are as many for JasperNetBig's leaves
+    as for JasperNetSmall's, where the chain's grow with them."""
+    from torch.profiler import ProfilerActivity, profile
+    from convasr_tpu_torch.infra import profiler
+    from convasr_tpu_torch.train import loop, optim
+    launch = ('cudaLaunch', 'cuLaunch', 'cudaMemcpy', 'cudaMemset', 'cuMemcpy', 'cuMemset')
+    counts = {}
+    for name in ('JasperNetSmall', 'JasperNetBig'):
+        for route in ('fused', 'chain'):
+            model = small_jasper(card, name)
+            tx = loop.make_optimizer_with_accum(
+                optim.make_optimizer('NovoGrad', optim.noop_lr(1e-3)), max_grad_norm=1.0)
+            if route == 'chain':
+                tx = tx._replace(fused=None)
+            state, step = loop.init_train_state(model, tx), loop.make_train_step(model, tx)
+            step(state, small_batch(card))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(state, small_batch(card))
+                torch.cuda.synchronize()
+            profiler.reset()
+            events = list(prof.profiler.kineto_results.events())
+            (update,) = [e for e in events if e.name() == 'train.update'
+                         and e.device_type() != torch.autograd.DeviceType.CUDA]
+            counts[name, route] = (len(list(model.parameters())), len([
+                e for e in events if e.name().startswith(launch)
+                and e.device_type() != torch.autograd.DeviceType.CUDA
+                and update.start_ns() <= e.start_ns() <= update.end_ns()]))
+    small, big = counts['JasperNetSmall', 'fused'], counts['JasperNetBig', 'fused']
+    assert big[0] > 2 * small[0], counts
+    assert big[1] == small[1] and 0 < big[1] < 40, counts
+    assert counts['JasperNetBig', 'chain'][1] > counts['JasperNetSmall', 'chain'][1] > big[1], \
+        counts
