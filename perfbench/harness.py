@@ -6,12 +6,18 @@ Everything that belongs to one configuration, cell, traffic kind or metric
 is a file of its own under this folder, found by the name in
 BENCHMARK.json:
 
-    configs/<config>.json    the configuration as it is run
+    configs/<config>.json    the configuration as it is run (and an
+                             optional `tiny` block: its CPU-size form)
     cells/<cell>.json        config, traffic, kind, params, chips, why, and
                              which params are assumed and which sourced
     traffic/<kind>.py        setup(run) -> a session with window(), check()
+                             (and an optional TINY dict: the CPU-size params)
     metrics/<metric>.py      read(run) -> a number, or None where it has
                              nothing to read
+
+A new configuration, cell, kind or metric is a new file here, with its
+entries appended to BENCHMARK.json; the tests (tests/tiny.py) take every
+cell of BENCHMARK.json at the CPU-size form its files give.
 
 A session (see traffic/train.py) builds the program and warms up every
 shape in `setup`, runs the measured `window`, and with `--trace 1` a traced

@@ -3,14 +3,16 @@ due-time latency, the union of device intervals, and the operation and byte
 counts of the CTC kernels.
 
 Peaks (one NVIDIA H100 SXM, NVIDIA's data sheet, dense rates, at its 700 W
-power limit): 989 TFLOP/s bf16, 67 TFLOP/s float32 outside the tensor cores,
-3.35 TB/s of HBM. A roofline share is the least time the card could take
-(each kernel's operations over its peak, or its bytes over the bandwidth,
-whichever is larger) over the time its kernels took.
+power limit): 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s float32
+outside the tensor cores, 3.35 TB/s of HBM. A roofline share is the least
+time the card could take (each kernel's operations over its peak, or its
+bytes over the bandwidth, whichever is larger) over the time its kernels
+took.
 """
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 

@@ -131,3 +131,48 @@ def stft_flops_per_frame(frontend: dict) -> float:
     nfft = 2 ** math.ceil(math.log2(win))
     bins = nfft // 2 + 1
     return float(2 * nfft * 2 * bins + 2 * bins * frontend['num_input_features'])
+
+
+def int8_products(arch: dict, classes: list, frontend: dict, rows: int, samples: int) -> list:
+    """Every int8 x int8 -> int32 product of an int8 post-training quantized
+    forward of `rows` rows padded to `samples` samples (the plan of convasr's
+    int8 inference: batch norm folded, each conv with taps one int8 conv,
+    each one-tap conv at stride 1 one GEMM of (rows x frames, Cin) by
+    (Cin, Cout), a block's two or more dense-residual 1x1 convs one GEMM over
+    their concatenated inputs).
+
+    dict(name, kind 'conv' or 'gemm', ops, bytes) each: ops 2 x the
+    multiply-adds; bytes the int8 input and weight read once and the int32
+    output written once."""
+    in_frames = frontend_frames(frontend, samples)
+    frames = output_frames(arch, frontend, samples)
+    out = []
+
+    def conv(name, cin, cout, kernel, t_in):
+        out.append(dict(name=name, kind='conv', ops=2.0 * rows * frames * kernel * cin * cout,
+                        bytes=float(rows * t_in * cin + kernel * cin * cout
+                                    + 4 * rows * frames * cout)))
+
+    def gemm(name, k, n):
+        m = rows * frames
+        out.append(dict(name=name, kind='gemm', ops=2.0 * m * k * n,
+                        bytes=float(m * k + k * n + 4 * m * n)))
+
+    for i, b in enumerate(block_plan(arch)):
+        for r in range(b['repeat']):
+            cin = b['cin'] if r == 0 else b['cout']
+            if b['kernel'] == 1 and b['stride'] == 1:
+                gemm(f'block{i}.conv{r}', cin, b['cout'])
+            else:
+                conv(f'block{i}.conv{r}', cin, b['cout'], b['kernel'],
+                     in_frames if i == 0 else frames)
+        if len(b['residual']) > 1:
+            gemm(f'block{i}.resfused', sum(b['residual']), b['cout'])
+        elif b['residual']:
+            gemm(f'block{i}.res0', b['residual'][0], b['cout'])
+    heads = head_plan(arch, classes)
+    gemm('decoder.head0', heads[0]['cin'], heads[0]['cout'])
+    if len(heads) > 1:
+        for k, b in enumerate(heads[1]['blocks']):
+            conv(f'decoder.bpe{k}.conv0', b['cin'], b['cout'], b['kernel'], frames)
+    return out

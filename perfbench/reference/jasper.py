@@ -8,7 +8,10 @@ file). It imports nothing of the program and nothing of JAX.
 `precision='fp8'` is the control: every model convolution computed as fp8
 training computes it (input and weight in e4m3, the gradient flowing back in
 e5m2, per-tensor scales), the step below the bfloat16 the configuration
-states; it has to come out as not correct.
+states; it has to come out as not correct. `precision='int4'` is the control
+of a configuration quantized to int8, the step below it: every model
+convolution's input symmetric int4 with a per-tensor scale and its weight
+symmetric int4 with a scale for each output channel (evaluation only).
 
 Dropout and dither draw from a `torch.Generator` handed in by the benchmark,
 in the order of the model's forward: the dither of the whole (B, T) signal,
@@ -45,6 +48,13 @@ def _fp8(t: torch.Tensor, dtype) -> torch.Tensor:
     top = torch.finfo(dtype).max
     scale = top / t.abs().amax().clamp(min=1e-30)
     return (t * scale).to(dtype).to(t.dtype) / scale
+
+
+def _int4(t: torch.Tensor, dims) -> torch.Tensor:
+    """t rounded to symmetric int4 (-7 .. 7) with one scale over `dims`, which
+    maps the largest magnitude there to 7."""
+    scale = t.abs().amax(dim=dims, keepdim=True).clamp(min=1e-30) / 7.0
+    return torch.clamp(torch.round(t / scale), -7.0, 7.0) * scale
 
 
 class Fp8Conv(torch.autograd.Function):
@@ -151,12 +161,16 @@ class Model:
         self.classes = [h['classes'] for h in config['heads']]
         self.plan = model_plan.block_plan(self.arch)
         self.frontend = Frontend(config['frontend'], device)
-        self.fp8 = precision == 'fp8'
+        if precision not in ('float32', 'fp8', 'int4'):
+            raise ValueError(f'no reference precision {precision!r}')
+        self.precision = precision
 
     def conv(self, x, w, b=None, stride=1, dilation=1):
         pad = dilation * w.shape[-1] // 2
-        if self.fp8:
+        if self.precision == 'fp8':
             return Fp8Conv.apply(x, w, b, stride, pad, dilation)
+        if self.precision == 'int4':
+            x, w = _int4(x, (0, 1, 2)), _int4(w, (1, 2))
         return F.conv1d(x, w, b, stride, pad, dilation)
 
     @staticmethod
